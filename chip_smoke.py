@@ -1,0 +1,423 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. Environment: the card's name and power limit (nvidia-smi), torch, CUDA
+   and nvcc versions.
+2. Build: every kernel under ``src/repro_torch/kernels/csrc`` with nvcc,
+   one process per source, all started together.
+3. Kernel against plain version: ``snn_chunk`` on the card at the
+   collision network's full width (4096-512-2, 8 slots, Tc = 5, C = 4096)
+   over rate-coded trains of the collision images, across neuron modes and
+   layouts.  Spikes, events and refractory counters must match exactly and
+   membranes within 1e-5.  Times the kernel (CUDA events) and its plain
+   version, and computes the kernel's bound from this run's inputs.
+4. Main path: ``SNNStreamEngine`` on the card with ``backend="fused"``
+   serves 32 image requests and 16 spike-train requests with ragged
+   windows.  Checks every result, checks that the kernel launched once per
+   dispatched tick, and checks that an engine forced onto the plain
+   version gives identical results for the spike requests.
+5. Prints the kernel table as one JSON line, then ``{"ok": true, ...}`` as
+   the last line.
+
+There is no CPU fallback: without a CUDA device the script exits 2.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SLOTS, TC, SEED = 8, 5, 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def weights_np(sizes, seed):
+    """Seeded random weights in the reference's layout and init ranges."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for i, (k, n) in enumerate(zip(sizes[:-1], sizes[1:])):
+        bound = 1.0 / np.sqrt(k)
+        params[f"layer{i}"] = {
+            "w": rng.uniform(-bound, bound, (k, n)).astype(np.float32),
+            "b": rng.uniform(-bound, bound, n).astype(np.float32),
+            "beta_raw": np.full(n, np.log(0.9 / 0.1), np.float32),
+            "threshold": np.ones(n, np.float32),
+        }
+    # an untrained output layer stays silent at threshold 1: lower it so
+    # the output spikes, and the paths that follow them, are exercised
+    params[f"layer{len(sizes) - 2}"]["threshold"][:] = 0.1
+    return params
+
+
+def images(n, seed):
+    from repro_torch.data import collision
+
+    cfg = collision.CollisionConfig(image_hw=64, num_train=0, num_test=n,
+                                    seed=seed)
+    return collision.generate(cfg)[2].reshape(n, -1)
+
+
+def cuda_ms(fn, reps=20, rounds=5):
+    """Median over ``rounds`` of the mean time of ``reps`` calls, from
+    CUDA events, after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def chunk_bound(args, events, widths):
+    """Least time for one chunk on an H100 SXM: the larger of the bytes it
+    must move over the memory rate and its float32 operations over the
+    float32 rate, counted from this call's inputs and its measured
+    hidden-layer events."""
+    import torch
+
+    weights, biases, betas, thrs, u0, r0, addrs, values, counts, active = args
+    B, Tc, C = addrs.shape
+    lanes = torch.arange(C, device=addrs.device)
+    live = (active != 0)[:, None, None]
+    valid = (lanes < counts[:, :, None]) & live
+    n_events = int(valid.sum())
+    rows = int(torch.unique(addrs[valid].long()).numel())
+    N = widths[1:]
+    total = sum(N)
+    nbytes = (
+        rows * N[0] * 4  # the W0 rows this run's events gather
+        + sum(int(w.numel()) * 4 for w in weights[1:])
+        + 3 * total * 4  # bias, beta, threshold
+        + n_events * (addrs.element_size() + values.element_size())
+        + counts.numel() * 4 + B * 4
+        + 2 * B * total * 8  # incoming and final membranes + counters
+        + 2 * Tc * B * N[-1] * 4 + Tc * len(N) * B * 4  # mem, spk, events
+    )
+    # each input event costs a multiply and an add per output neuron; each
+    # neuron update a multiply, two adds and a compare
+    hidden = sum(int(events[:, i].sum()) * N[i] for i in range(1, len(N)))
+    flops = 2 * n_events * N[0] + 2 * hidden + 4 * Tc * B * total
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    bound = ("bytes", t_bytes) if t_bytes >= t_ops else ("operations", t_ops)
+    return bound, {"events": n_events, "distinct_w0_rows": rows,
+                   "bytes": nbytes, "flops": flops}
+
+
+def phase_kernel(torch, dev, params_np, card):
+    """Phase 3: the kernel against its plain version at full width."""
+    import numpy as np
+
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.core import snn
+    from repro_torch.events import runtime
+    from repro_torch.kernels import snn_chunk as chunk_mod
+
+    sizes = CONFIG.layer_sizes
+    params = snn.params_from_numpy(params_np, dev)
+    rng = np.random.default_rng(SEED + 1)
+    px = images(SLOTS, SEED + 1)  # one collision image per slot
+    train = (rng.random((SLOTS, TC, sizes[0])) < px[:, None, :]).astype(
+        np.float32
+    )
+    silent = train.copy()
+    silent[:, 2] = 0.0  # one all-silent step
+    tables = {
+        name: runtime.encode_step_table(torch.from_numpy(x).to(dev), sizes[0])
+        for name, x in (("base", train), ("silent", silent))
+    }
+    u_rand = [torch.from_numpy(rng.normal(0, 0.4, (SLOTS, n)).astype(
+        np.float32)).to(dev) for n in sizes[1:]]
+    r_rand = [torch.from_numpy(rng.integers(0, 6, (SLOTS, n)).astype(
+        np.int32)).to(dev) for n in sizes[1:]]
+    u_zero = [torch.zeros_like(u) for u in u_rand]
+    r_zero = [torch.zeros_like(r) for r in r_rand]
+    ones = torch.ones(SLOTS, device=dev)
+    frozen = ones.clone()
+    frozen[3] = 0.0
+
+    def layer_args(p):
+        L = len(sizes) - 1
+        lp = [p[f"layer{i}"] for i in range(L)]
+        return ([x["w"] for x in lp], [x["b"] for x in lp],
+                [snn.effective_beta(x) for x in lp],
+                [x["threshold"] for x in lp])
+
+    q115 = snn.quantized(params)
+    cases = [
+        # name, params, u0, r0, table, active, kwargs, layout
+        ("lif_zero", params, u_zero, r_zero, "base", ones, {}, "slot_major"),
+        ("lif_subtract", params, u_rand, r_zero, "base", ones,
+         {"reset": "subtract"}, "slot_major"),
+        ("refractory5", params, u_rand, r_rand, "base", ones,
+         {"refractory_steps": 5}, "slot_major"),
+        ("lapicque", params, u_rand, r_zero, "base", ones,
+         {"kind": "lapicque", "lapicque_gain": 0.5}, "slot_major"),
+        ("q115", q115, u_zero, r_zero, "base", ones, {}, "slot_major"),
+        ("frozen_slot", params, u_rand, r_zero, "base", frozen, {},
+         "slot_major"),
+        ("silent_step", params, u_rand, r_zero, "silent", ones, {},
+         "slot_major"),
+        ("time_major", params, u_rand, r_rand, "base", ones,
+         {"refractory_steps": 5, "reset": "subtract"}, "time_major"),
+    ]
+    worst = 0.0
+    for name, p, u0, r0, tab_name, act, kw, layout in cases:
+        tab = tables[tab_name]
+        a, v, c = tab.addrs, tab.values, tab.counts
+        if layout == "time_major":
+            a, v = a.transpose(0, 1).contiguous(), v.transpose(0, 1).contiguous()
+            c = c.T.contiguous()
+        args = (*layer_args(p), u0, r0, a, v, c, act)
+        got = chunk_mod.snn_chunk(*args, layout=layout, **kw)
+        ref = chunk_mod.snn_chunk_ref(*args, layout=layout, **kw)
+        torch.cuda.synchronize()
+        mem, spk, ev, u_fin, r_fin = got
+        r_mem, r_spk, r_ev, r_u, r_r = ref
+        if not torch.equal(spk, r_spk):
+            fail(f"{name}: spikes differ from the plain version")
+        if not torch.equal(ev, r_ev):
+            fail(f"{name}: events differ from the plain version")
+        if not all(torch.equal(x, y) for x, y in zip(r_fin, r_r)):
+            fail(f"{name}: refractory counters differ")
+        err = max(
+            [float((mem - r_mem).abs().max())]
+            + [float((x - y).abs().max()) for x, y in zip(u_fin, r_u)]
+        )
+        if not err <= 1e-5:
+            fail(f"{name}: membranes differ by {err}")
+        worst = max(worst, err)
+        print(f"kernel[{name}]: events {int(ev[:, 0].sum())} layer-0, "
+              f"{int(ev[:, 1:].sum())} hidden | out spikes {int(spk.sum())} | "
+              f"max|d mem|={err:g} (spikes/events/refractory exact)")
+        if name == "lif_zero":
+            timed_args, timed_events = args, ev
+    ms = cuda_ms(lambda: chunk_mod.snn_chunk(*timed_args, layout="slot_major"))
+    plain = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        chunk_mod.snn_chunk_ref(*timed_args, layout="slot_major")
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = statistics.median(plain)
+    (bound_by, bound_ms), work = chunk_bound(
+        timed_args, timed_events, list(sizes)
+    )
+    print(f"kernel time: snn_chunk {ms:.4f} ms | plain {plain_ms:.1f} ms | "
+          f"bound {bound_ms:.5f} ms ({bound_by}; {work}) | on {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": worst}
+
+
+def phase_main(torch, dev, params_np, card):
+    """Phase 4: the serving engine on the card, through the kernel."""
+    import numpy as np
+
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.core import snn
+    from repro_torch.kernels import snn_chunk as chunk_mod
+    from repro_torch.serving.snn_engine import SNNStreamEngine, StreamRequest
+
+    params = snn.params_from_numpy(params_np, dev)
+    K = CONFIG.layer_sizes[0]
+    rng = np.random.default_rng(SEED + 2)
+    img_reqs = [StreamRequest(image=x) for x in images(32, SEED + 2)]
+    px = images(16, SEED + 3)
+    steps = rng.integers(5, CONFIG.num_steps + 1, 16)
+    spike_reqs = [
+        StreamRequest(
+            spikes=(rng.random((int(T), K)) < x).astype(np.float32),
+            num_steps=int(T),
+        )
+        for x, T in zip(px, steps)
+    ]
+
+    def engine(backend):
+        return SNNStreamEngine(params, CONFIG, num_slots=SLOTS,
+                               chunk_steps=TC, backend=backend, device=dev)
+
+    engine("fused").run(spike_reqs[:2])  # warm-up: allocator, first launch
+    torch.cuda.synchronize()
+
+    eng = engine("fused")
+    chunk_mod.snn_chunk.launches = 0
+    t0 = time.perf_counter()
+    results = eng.run(img_reqs + spike_reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = chunk_mod.snn_chunk.launches
+    if launches == 0 or launches != eng.dispatched_ticks:
+        fail(f"snn_chunk launched {launches} times over "
+             f"{eng.dispatched_ticks} dispatched ticks")
+    for r, req in zip(results, img_reqs + spike_reqs):
+        T = req.num_steps or CONFIG.num_steps
+        if r.disposition != "ok" or r.steps != T:
+            fail(f"request {r.request_id}: {r.disposition} {r.fault}")
+        if r.prediction not in (0, 1) or not r.events_per_layer[0] > 0:
+            fail(f"request {r.request_id}: prediction {r.prediction}, "
+                 f"events {r.events_per_layer}")
+        if not (np.isfinite(r.energy_pj) and r.energy_pj > 0):
+            fail(f"request {r.request_id}: energy {r.energy_pj}")
+    events = float(sum(r.events_per_layer.sum() for r in results))
+    print(f"main path: {len(results)} requests ok in {wall:.3f} s over "
+          f"{eng.dispatched_ticks} ticks, snn_chunk launches {launches} | "
+          f"{len(results) / wall:.1f} req/s | {events / wall:.0f} events/s | "
+          f"{wall / eng.dispatched_ticks * 1e3:.3f} ms/tick | on {card}")
+
+    def fields(r):  # every field but the clocks and the request id
+        return (r.prediction, r.steps, r.spike_rate, r.energy_pj,
+                r.spike_counts.tolist(), r.events_per_layer.tolist(),
+                r.disposition, r.fault, r.deadline_s, r.deadline_missed)
+
+    fused = [fields(r) for r in results[len(img_reqs):]]
+    plain = [fields(r) for r in engine("fused_ref").run(spike_reqs)]
+    if fused != plain:
+        bad = [i for i, (a, b) in enumerate(zip(fused, plain)) if a != b]
+        fail(f"engine on the plain version differs on spike requests {bad}")
+    print(f"main path: the plain-version engine matches the kernel engine "
+          f"on all {len(plain)} spike requests")
+    ref = [fields(r) for r in engine("torch").run(spike_reqs)]
+    same = sum(a == b for a, b in zip(fused, ref))
+    same_pred = sum(a[0] == b[0] for a, b in zip(fused, ref))
+    print(f"main path: backend='torch' agrees on {same}/{len(ref)} spike "
+          f"requests in every field, {same_pred}/{len(ref)} in prediction "
+          f"(its layer-0 sums run in another order; not gated)")
+    profile_main(torch, engine("fused"), img_reqs + spike_reqs, card)
+    return {"launches": launches, "wall_s": wall,
+            "ticks": eng.dispatched_ticks}
+
+
+def profile_main(torch, eng, reqs, card):
+    """The main path once more under torch.profiler: device time by
+    kernel and the device's busy share of the traced wall time (not
+    gated; the profiler slows the host side, so this wall is longer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0:
+            device_us[ev.key] = us
+    busy_ms = sum(device_us.values()) / 1e3
+    if busy_ms == 0:
+        print("profile: the profiler recorded no device time: not measured")
+        return
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile: traced wall {wall_ms:.1f} ms over {eng.dispatched_ticks} "
+          f"ticks | device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) | "
+          f"on {card}")
+    for name, us in top:
+        print(f"profile:   {us / 1e3:8.3f} ms  {name[:90]}")
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: the port's sources (src/repro_torch) are not "
+              "beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card and has no CPU fallback", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. environment
+    card = card_line()
+    print(card)
+    from repro_torch.kernels import _build
+
+    nvcc_v = subprocess.run([_build.nvcc(), "--version"], capture_output=True,
+                            text=True, check=True, timeout=60).stdout
+    print(f"torch {torch.__version__} | CUDA {torch.version.cuda} | "
+          f"{nvcc_v.strip().splitlines()[-1]} | "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    for name, rec in report.items():
+        ptxas = [ln.strip() for ln in rec["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"build {name}: {rec['seconds']:.1f} s | " + " | ".join(ptxas))
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(report)} "
+          f"kernel source(s)")
+
+    from repro_torch.configs.collision_snn import CONFIG
+
+    params_np = weights_np(CONFIG.layer_sizes, SEED)
+    dev = torch.device("cuda")
+    # 3. kernel against plain version
+    kern = phase_kernel(torch, dev, params_np, card)
+    # 4. main path
+    main_run = phase_main(torch, dev, params_np, card)
+
+    # 5. results
+    print(json.dumps({"kernels": [{
+        "name": "snn_chunk",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/snn_chunk.cu",
+        "replaces": "src/repro/kernels/snn_chunk.py:221",
+        "launches": main_run["launches"],
+        "max_abs_err": kern["max_abs_err"],
+        "ms": kern["ms"],
+        "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": None,
+    }]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,53 @@
+"""Input spike coding (paper §3.2).
+
+  - ``rate_encode``  : Bernoulli rate coding, intensity == per-step spike
+    probability (the paper's choice; Fig. 2).  Draws from a
+    ``torch.Generator``, so it does not reproduce the reference's bits.
+  - ``rate_encode_deterministic`` : round(p*T) evenly spaced spikes.
+  - ``ttfs_encode``  : time-to-first-spike, brighter pixels fire earlier.
+
+All return a (T, *x.shape) float32 tensor with time leading.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def rate_encode(
+    generator: torch.Generator, x: torch.Tensor, num_steps: int
+) -> torch.Tensor:
+    """Bernoulli rate coding.  ``x`` must be normalized to [0, 1]; the
+    generator must live on ``x``'s device."""
+    p = torch.clamp(x, 0.0, 1.0)
+    u = torch.rand(
+        (num_steps,) + tuple(x.shape),
+        generator=generator,
+        dtype=torch.float32,
+        device=x.device,
+    )
+    return (u < p).to(torch.float32)
+
+
+def rate_encode_deterministic(x: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """Deterministic rate coding via phase accumulation: spike at step t
+    iff floor(t*p) > floor((t-1)*p)."""
+    p = torch.clamp(x, 0.0, 1.0)
+    t = torch.arange(1, num_steps + 1, dtype=torch.float32, device=x.device)
+    acc_t = torch.floor(t[:, None] * p.reshape(1, -1))
+    acc_prev = torch.floor((t - 1)[:, None] * p.reshape(1, -1))
+    spikes = (acc_t > acc_prev).to(torch.float32)
+    return spikes.reshape((num_steps,) + tuple(x.shape))
+
+
+def ttfs_encode(x: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """Time-to-first-spike: intensity 1.0 fires at t=0, 0 never fires."""
+    p = torch.clamp(x, 0.0, 1.0)
+    t_fire = torch.where(
+        p > 0,
+        torch.round((1.0 - p) * (num_steps - 1)),
+        torch.full_like(p, float(num_steps)),
+    )
+    t = torch.arange(num_steps, dtype=t_fire.dtype, device=x.device)
+    shape = (num_steps,) + (1,) * x.dim()
+    return (t.reshape(shape) == t_fire[None]).to(torch.float32)

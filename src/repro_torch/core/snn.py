@@ -1,0 +1,158 @@
+"""The paper's SNN model (§4.2, Fig. 4): 4096 -> 512 LIF -> 2 LIF.
+
+Parameters are a plain dict ``{"layer{i}": {"w", "b", "beta_raw",
+"threshold"}}`` of tensors, the reference's layout: ``w`` is (fan_in,
+fan_out), ``beta_raw`` is pre-sigmoid.  ``forward`` is the dense
+inference pass; dropout and the training loss wait for the training port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import neuron, quant
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class SNNConfig:
+    layer_sizes: Sequence[int] = (4096, 512, 2)  # paper Fig. 4
+    num_steps: int = 25  # paper §4.2.1
+    neuron_kind: str = "lif"  # "lif" | "lapicque"
+    reset: str = "zero"
+    surrogate: str = "atan"
+    refractory_steps: int = 0  # 5 for the §4.2.2 variant
+    dropout_rate: float = 0.2
+    beta_init: float = 0.9
+    threshold_init: float = 1.0
+    quant_q115: bool = False  # fake-quant weights to Q1.15 on the fly
+
+    @property
+    def neuron_cfg(self) -> neuron.NeuronConfig:
+        return neuron.NeuronConfig(
+            kind=self.neuron_kind,
+            reset=self.reset,
+            surrogate=self.surrogate,
+            refractory_steps=self.refractory_steps,
+        )
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layer_sizes) - 1
+
+
+def _beta_raw_init(beta: float) -> float:
+    beta = min(max(beta, 1e-4), 1 - 1e-4)
+    return math.log(beta / (1 - beta))
+
+
+def init_params(
+    generator: torch.Generator, cfg: SNNConfig, device=None
+) -> Params:
+    """Kaiming-uniform linear layers + learnable per-layer beta/threshold.
+
+    Draws on the generator's device, then moves to ``device``.
+    """
+    params: Params = {}
+    for i, (fan_in, fan_out) in enumerate(
+        zip(cfg.layer_sizes[:-1], cfg.layer_sizes[1:])
+    ):
+        bound = 1.0 / math.sqrt(fan_in)
+        gdev = generator.device
+
+        def uniform(shape):
+            u = torch.rand(shape, generator=generator, device=gdev)
+            return (u * 2.0 - 1.0) * bound
+
+        params[f"layer{i}"] = {
+            "w": uniform((fan_in, fan_out)).to(device),
+            "b": uniform((fan_out,)).to(device),
+            "beta_raw": torch.full(
+                (fan_out,), _beta_raw_init(cfg.beta_init), device=device
+            ),
+            "threshold": torch.full(
+                (fan_out,), float(cfg.threshold_init), device=device
+            ),
+        }
+    return params
+
+
+def params_from_numpy(
+    params_np: Mapping[str, Mapping[str, np.ndarray]], device
+) -> Params:
+    """The reference's ``{layer{i}: {w, b, beta_raw, threshold}}`` as numpy
+    arrays -> the port's float32 tensors on ``device``."""
+    return {
+        name: {
+            k: torch.from_numpy(np.array(v, np.float32)).to(device)
+            for k, v in lp.items()
+        }
+        for name, lp in params_np.items()
+    }
+
+
+def effective_beta(layer_params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sigmoid(layer_params["beta_raw"])
+
+
+def quantized(params: Params) -> Params:
+    """Q1.15 fake-quantization of every layer's weights and biases."""
+    return {
+        name: {
+            **lp,
+            "w": quant.fake_quant(lp["w"], quant.Q1_15),
+            "b": quant.fake_quant(lp["b"], quant.Q1_15),
+        }
+        for name, lp in params.items()
+    }
+
+
+def forward(
+    params: Params,
+    spikes: torch.Tensor,  # (T, B, input_size) in {0,1}
+    cfg: SNNConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the SNN over the coding window (inference mode).
+
+    Returns (out_mem (T, B, n_class), out_spikes (T, B, n_class)).
+    """
+    ncfg = cfg.neuron_cfg
+    p = quantized(params) if cfg.quant_q115 else params
+    B = spikes.shape[1]
+    states = [
+        neuron.init_state(
+            (B, cfg.layer_sizes[i + 1]), device=spikes.device
+        )
+        for i in range(cfg.num_layers)
+    ]
+    out_mem, out_spikes = [], []
+    for x_t in spikes:
+        h = x_t
+        for i in range(cfg.num_layers):
+            lp = p[f"layer{i}"]
+            cur = h @ lp["w"] + lp["b"]
+            states[i], h = neuron.neuron_step(
+                ncfg,
+                states[i],
+                cur,
+                beta=effective_beta(lp),
+                threshold=lp["threshold"],
+            )
+        out_mem.append(states[-1].u)
+        out_spikes.append(h)
+    return torch.stack(out_mem), torch.stack(out_spikes)
+
+
+def predict_from_traces(
+    out_mem: torch.Tensor, out_spikes: torch.Tensor
+) -> torch.Tensor:
+    """Spike-count argmax over the window (snntorch convention),
+    tie-broken by membrane sum so all-zero-spike batches still predict."""
+    counts = torch.sum(out_spikes, dim=0)  # (B, C)
+    return torch.argmax(counts + 1e-6 * torch.sum(out_mem, dim=0), dim=-1)

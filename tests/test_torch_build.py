@@ -1,0 +1,60 @@
+"""Kernel build plumbing of the port, with a stand-in ``nvcc``: one
+compile per source and flags, cached by content hash, failures raised
+after every compile has ended.  (The real nvcc exists only on the
+machine with the card.)"""
+
+import pytest
+
+from repro_torch.kernels import _build
+
+PTXAS = "ptxas info    : Used 40 registers, used 1 barriers"
+
+
+def _fake_cuda_home(tmp_path, body):
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + body)
+    nvcc.chmod(0o755)
+    return tmp_path / "cuda"
+
+
+@pytest.fixture
+def build_dir(tmp_path, monkeypatch):
+    out = tmp_path / "build" / "kernels"
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    return out
+
+
+def test_build_all_compiles_each_source_once(tmp_path, monkeypatch, build_dir):
+    writes_output = (
+        'while [ $# -gt 0 ]; do\n'
+        '  if [ "$1" = "-o" ]; then shift; echo built > "$1"; fi\n'
+        '  shift\n'
+        'done\n'
+        f'echo "{PTXAS}"\n'
+    )
+    monkeypatch.setenv("CUDA_HOME", str(_fake_cuda_home(tmp_path, writes_output)))
+    report = _build.build_all()
+    assert set(report) == set(_build.SIGNATURES)
+    assert PTXAS in report["snn_chunk"]["log"]
+    lib = _build.library_path("snn_chunk")
+    assert lib.parent == build_dir and lib.read_text() == "built\n"
+    assert [p.name for p in build_dir.iterdir()] == [lib.name]  # no temp left
+    assert _build.build_all()["snn_chunk"]["log"] == "cached"
+
+
+def test_build_all_raises_nvcc_errors(tmp_path, monkeypatch, build_dir):
+    monkeypatch.setenv(
+        "CUDA_HOME", str(_fake_cuda_home(tmp_path, "echo 'error: boom'\nexit 1\n"))
+    )
+    with pytest.raises(RuntimeError, match="nvcc failed for snn_chunk.cu:\n.*boom"):
+        _build.build_all()
+    assert not _build.library_path("snn_chunk").exists()
+
+
+def test_library_name_follows_source_and_flags(monkeypatch):
+    name = _build.library_path("snn_chunk").name
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.library_path("snn_chunk").name != name
+    assert name.startswith("libsnn_chunk-") and name.endswith(".so")

@@ -1,0 +1,60 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the
+reference package, statically or at run time."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name):
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_port_sources_import_no_jax_or_reference():
+    assert len(PORT_FILES) > 15 and all(p.exists() for p in PORT_FILES)
+    bad = [
+        (str(p.relative_to(ROOT)), name)
+        for p in PORT_FILES
+        for name in _imported_modules(p)
+        if _forbidden(name)
+    ]
+    assert bad == []
+
+
+def test_importing_the_port_loads_no_jax_or_reference():
+    mods = [
+        "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
+                                  .with_suffix("").parts)
+        for p in PORT_FILES
+        if p.name != "chip_smoke.py" and p.name != "__init__.py"
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(len(sys.modules)); assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
