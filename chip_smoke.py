@@ -19,7 +19,19 @@ Phases, in order; any failure exits non-zero:
    windows.  Checks every result, checks that the kernel launched once per
    dispatched tick, and checks that an engine forced onto the plain
    version gives identical results for the spike requests.
-5. Prints the kernel table as one JSON line, then ``{"ok": true, ...}`` as
+5. Kernel against plain version: ``aer_spike_matmul_batched`` on the card
+   at the training shapes (B = 32; layer 0, K = 4096, N = 512, on a dense
+   early DVS step and a sparse late one; layer 1, K = 512, N = 2), float32
+   with max abs difference 0 and int16 bit-exact.  Times the kernel, its
+   plain version and ``F.embedding_bag`` (the library yardstick), and
+   computes the bound from this run's events.
+6. Training path: ``EventTrainer`` at 4096-512-2, T = 25, B = 32, signed
+   DVS, every layer's forward through the kernel, then one ``evaluate``
+   through ``snn_chunk``.  Checks finite losses, the launch counts
+   (steps x T x L aer launches), one step bit-equal in loss and gradients
+   to the same step on the plain version, and two seeded runs
+   bit-identical; prints ms/step and a ``torch.profiler`` breakdown.
+7. Prints the kernel table as one JSON line, then ``{"ok": true, ...}`` as
    the last line.
 
 There is no CPU fallback: without a CUDA device the script exits 2.
@@ -36,6 +48,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SLOTS, TC, SEED = 8, 5, 0
+TRAIN_BATCH, TRAIN_STEPS = 32, 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -351,6 +364,229 @@ def profile_main(torch, eng, reqs, card):
         print(f"profile:   {us / 1e3:8.3f} ms  {name[:90]}")
 
 
+def train_config():
+    """The paper's network on the reference trainer's DVS workload:
+    64x64 signed DVS -> 4096-512-2, T = 25."""
+    from repro_torch.sparse_train.trainer import EventTrainConfig
+
+    return EventTrainConfig(image_hw=64, hidden=512, num_steps=25,
+                            polarity_mode="signed")
+
+
+def aer_bound(addrs, values, weights):
+    """Least time for one ``aer_spike_matmul_batched`` call on an H100 SXM:
+    the larger of the bytes it must move (the W rows this call's live
+    events touch, the live events' addresses and values, the output) over
+    the memory rate and its multiply-adds over the float32 rate."""
+    import torch
+
+    K, N = weights.shape
+    live = (values != 0) & (addrs >= 0) & (addrs < K)
+    n_live = int(live.sum())
+    rows = int(torch.unique(addrs[live]).numel())
+    nbytes = (rows * N * weights.element_size() + n_live * 8
+              + addrs.shape[0] * N * 4)
+    flops = 2 * n_live * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    bound = ("bytes", t_bytes) if t_bytes >= t_ops else ("operations", t_ops)
+    return bound, {"events": n_live, "distinct_rows": rows, "bytes": nbytes,
+                   "flops": flops}
+
+
+def phase_aer_kernel(torch, dev, params_np, card):
+    """Phase 5: the aer kernel against its plain version at the training
+    shapes, over a DVS batch rendered on the card."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.core import quant
+    from repro_torch.events import runtime
+    from repro_torch.kernels import aer_matmul as aer_mod
+    from repro_torch.sparse_train.trainer import dvs_batches
+
+    tcfg = train_config()
+    planes = next(dvs_batches(SEED + 4, TRAIN_BATCH, tcfg, device=dev))["spikes"]
+    rng = np.random.default_rng(SEED + 4)
+    w0 = torch.from_numpy(params_np["layer0"]["w"]).to(dev)
+    w1 = torch.from_numpy(params_np["layer1"]["w"]).to(dev)
+    hidden = torch.from_numpy((rng.random((TRAIN_BATCH, w1.shape[0])) < 0.15)
+                              .astype(np.float32)).to(dev)
+    cases = {
+        "layer0_dense_t0": (planes[:, 0], w0),
+        "layer0_sparse_t24": (planes[:, tcfg.num_steps - 1], w0),
+        "layer1": (hidden, w1),
+    }
+    fn, ref_fn = aer_mod.aer_spike_matmul_batched, aer_mod.aer_spike_matmul_batched_ref
+    out = {}
+    for name, (plane, w) in cases.items():
+        addrs, values, _ = runtime.step_events(plane, plane.shape[-1])
+        got, ref = fn(addrs, values, w), ref_fn(addrs, values, w)
+        wq = quant.quantize(w)
+        vq = values.to(torch.int32)
+        got_q, ref_q = fn(addrs, vq, wq), ref_fn(addrs, vq, wq)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not torch.equal(got, ref):
+            fail(f"aer {name}: float32 kernel differs from its plain version "
+                 f"by {err}")
+        if not torch.equal(got_q, ref_q):
+            fail(f"aer {name}: int16 kernel differs from its plain version")
+        ms = cuda_ms(lambda: fn(addrs, values, w))
+        lib_ms = cuda_ms(lambda: F.embedding_bag(
+            addrs, w, per_sample_weights=values, mode="sum"))
+        lib = F.embedding_bag(addrs, w, per_sample_weights=values, mode="sum")
+        plain = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ref_fn(addrs, values, w)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - t0) * 1e3)
+        (bound_by, bound_ms), work = aer_bound(addrs, values, w)
+        out[name] = {"ms": ms, "plain_ms": statistics.median(plain),
+                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err}
+        print(f"aer[{name}]: B={addrs.shape[0]} E={addrs.shape[1]} "
+              f"K={w.shape[0]} N={w.shape[1]} | f32 max|d|={err:g}, int16 "
+              f"exact | kernel {ms:.4f} ms | plain {out[name]['plain_ms']:.1f}"
+              f" ms | embedding_bag {lib_ms:.4f} ms (max|d| "
+              f"{float((lib - got).abs().max()):.2g}, not gated) | bound "
+              f"{bound_ms:.5f} ms ({bound_by}; {work}) | on {card}")
+    return out
+
+
+def _grads(torch, trainer, params, batch):
+    from repro_torch.tree import tree_leaves, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = trainer.model.loss(live, batch)
+    return [loss.detach()] + list(torch.autograd.grad(loss, tree_leaves(live)))
+
+
+def phase_train(torch, dev, card):
+    """Phase 6: event-driven training at full width through the kernel."""
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch.kernels import aer_matmul as aer_mod
+    from repro_torch.kernels import snn_chunk as chunk_mod
+    from repro_torch.sparse_train.trainer import EventTrainer, dvs_batches
+    from repro_torch.tree import tree_leaves
+
+    tcfg = train_config()
+
+    def trainer():
+        return EventTrainer(tcfg, use_kernel=True, device=dev, seed=SEED)
+
+    def batches():
+        return dvs_batches(SEED, TRAIN_BATCH, tcfg, device=dev)
+
+    def quiet(_):
+        pass
+
+    warm = trainer()  # allocator, first launches
+    warm.run(warm.init_state(SEED), batches(), 1, log_fn=quiet)
+    torch.cuda.synchronize()
+
+    runs = []
+    for run in range(2):
+        tr = trainer()
+        state0 = tr.init_state(SEED)
+        eval_batch = next(dvs_batches(SEED + 9, TRAIN_BATCH, tcfg, device=dev))
+        torch.cuda.synchronize()
+        if run == 0:  # the main path: counts from 0, read right after
+            aer_mod.aer_spike_matmul_batched.launches = 0
+            chunk_mod.snn_chunk.launches = 0
+        t0 = time.perf_counter()
+        state, metrics = tr.run(state0, batches(), TRAIN_STEPS,
+                                log_every=TRAIN_STEPS, log_fn=quiet)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        acc = float(tr.evaluate(state.params, eval_batch)["accuracy"])
+        if run == 0:
+            launches = aer_mod.aer_spike_matmul_batched.launches
+            chunk_launches = chunk_mod.snn_chunk.launches
+        runs.append((state, metrics, wall))
+        if not (np.isfinite(metrics["loss"]) and
+                all(bool(torch.isfinite(x).all()) for x in
+                    tree_leaves(state.params))):
+            fail(f"training run {run}: loss {metrics['loss']} or params "
+                 f"not finite")
+    L = tcfg.snn_config().num_layers
+    want = TRAIN_STEPS * tcfg.num_steps * L
+    if launches != want:
+        fail(f"aer_spike_matmul_batched launched {launches} times over "
+             f"{TRAIN_STEPS} steps, want steps x T x L = {want}")
+    if chunk_launches != 1:
+        fail(f"evaluate launched snn_chunk {chunk_launches} times, want 1")
+    (sa, ma, wall), (sb, mb, _) = runs
+    if ma != mb or not all(torch.equal(x, y) if isinstance(x, torch.Tensor)
+                           else x == y for x, y in
+                           zip(tree_leaves(sa), tree_leaves(sb))):
+        fail("two training runs from one seed differ")
+    ms_step = wall / TRAIN_STEPS * 1e3
+    print(f"train: {tcfg.input_size}-{tcfg.hidden}-2 T={tcfg.num_steps} "
+          f"B={TRAIN_BATCH}, "
+          f"{TRAIN_STEPS} steps in {wall:.3f} s ({ms_step:.1f} ms/step, "
+          f"data rendered on the card inside the step loop) | aer launches "
+          f"{launches} (= steps x T x L) | snn_chunk launches "
+          f"{chunk_launches} (evaluate) | final loss {ma['loss']:.4f}, "
+          f"events l0/l1 {ma['events_l0']:.0f}/{ma['events_l1']:.0f}, eval "
+          f"accuracy {acc:.3f} | two seeded runs bit-identical | on {card}")
+
+    tr = trainer()
+    params = tr.init_state(SEED).params
+    batch = next(batches())
+    kern = _grads(torch, tr, params, batch)
+    with mock.patch.object(aer_mod, "aer_spike_matmul_batched",
+                           aer_mod.aer_spike_matmul_batched_ref):
+        t0 = time.perf_counter()
+        plain = _grads(torch, tr, params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    if not all(torch.equal(x, y) for x, y in zip(kern, plain)):
+        bad = [i for i, (x, y) in enumerate(zip(kern, plain))
+               if not torch.equal(x, y)]
+        fail(f"the kernel step and the plain-version step differ at {bad}")
+    print(f"train: one step's loss and all {len(kern) - 1} gradients "
+          f"bit-equal on the plain version ({plain_s:.1f} s) and the kernel")
+    profile_train(torch, trainer(), batches, card)
+    return {"launches": launches, "ms_per_step": ms_step}
+
+
+def profile_train(torch, tr, batches, card):
+    """Two training steps under torch.profiler: device time by kernel and
+    the device's busy share of the traced wall (not gated)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = tr.init_state(SEED)
+    it = batches()
+    state, _ = tr.run(state, it, 1, log_fn=lambda _: None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.run(state, it, 2, log_every=2, log_fn=lambda _: None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0:
+            device_us[ev.key] = us
+    busy_ms = sum(device_us.values()) / 1e3
+    if busy_ms == 0:
+        print("profile train: the profiler recorded no device time: not measured")
+        return
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    aer_ms = sum(us for k, us in device_us.items() if "aer_matmul" in k) / 1e3
+    print(f"profile train: traced wall {wall_ms:.1f} ms over 2 steps | device "
+          f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) | aer kernel "
+          f"{aer_ms:.2f} ms ({aer_ms / busy_ms:.1%} of busy) | on {card}")
+    for name, us in top:
+        print(f"profile train:   {us / 1e3:8.3f} ms  {name[:90]}")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -395,8 +631,13 @@ def main() -> int:
     kern = phase_kernel(torch, dev, params_np, card)
     # 4. main path
     main_run = phase_main(torch, dev, params_np, card)
+    # 5. aer kernel against plain version
+    aer = phase_aer_kernel(torch, dev, params_np, card)
+    # 6. training path
+    train_run = phase_train(torch, dev, card)
 
-    # 5. results
+    # 7. results
+    dense = aer["layer0_dense_t0"]
     print(json.dumps({"kernels": [{
         "name": "snn_chunk",
         "route": "cuda",
@@ -409,6 +650,18 @@ def main() -> int:
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "aer_spike_matmul_batched",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/aer_matmul.cu",
+        "replaces": "src/repro/kernels/aer_matmul.py:126",
+        "launches": train_run["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in aer.values()),
+        "ms": dense["ms"],
+        "plain_ms": dense["plain_ms"],
+        "bound_ms": dense["bound_ms"],
+        "bound_by": dense["bound_by"],
+        "library_ms": dense["library_ms"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

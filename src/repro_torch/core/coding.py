@@ -5,8 +5,11 @@
     ``torch.Generator``, so it does not reproduce the reference's bits.
   - ``rate_encode_deterministic`` : round(p*T) evenly spaced spikes.
   - ``ttfs_encode``  : time-to-first-spike, brighter pixels fire earlier.
+  - ``delta_encode`` : delta modulation over an input sequence, spikes on
+    signal change.
 
-All return a (T, *x.shape) float32 tensor with time leading.
+All return a (T, *x.shape) float32 tensor with time leading, in {0,1}
+({-1,0,1} for delta).
 """
 
 from __future__ import annotations
@@ -51,3 +54,22 @@ def ttfs_encode(x: torch.Tensor, num_steps: int) -> torch.Tensor:
     t = torch.arange(num_steps, dtype=t_fire.dtype, device=x.device)
     shape = (num_steps,) + (1,) * x.dim()
     return (t.reshape(shape) == t_fire[None]).to(torch.float32)
+
+
+def delta_encode(x_seq: torch.Tensor, threshold: float = 0.1) -> torch.Tensor:
+    """Delta modulation over a (T, ...) input sequence.
+
+    Emits +1 when the signal rises by at least ``threshold`` above the
+    last emitted level, -1 when it falls as far; the level moves by
+    ``threshold`` per spike, so encoding error does not drift.
+    """
+    level = torch.zeros_like(x_seq[0])
+    spikes = []
+    for x_t in x_seq:
+        diff = x_t - level
+        spike = (diff >= threshold).to(x_seq.dtype) - (diff <= -threshold).to(
+            x_seq.dtype
+        )
+        level = level + spike * threshold
+        spikes.append(spike)
+    return torch.stack(spikes)

@@ -79,7 +79,12 @@ class _STERound(torch.autograd.Function):
 def fake_quant(x: torch.Tensor, fmt: QFormat = Q1_15) -> torch.Tensor:
     """Round ``x`` to the Q-grid, straight-through gradient (QAT hook).
 
-    Bit-exact match of quantize->dequantize for in-range values.
+    Bit-exact match of quantize->dequantize for in-range values.  The clip
+    is a maximum then a minimum, not ``torch.clamp``: at an input exactly
+    on a bound the gradient splits 0.5/0.5 between ``x`` and the bound,
+    as the reference's ``jnp.clip`` does (``torch.clamp`` passes it whole).
     """
-    clipped = torch.clamp(x, fmt.min_val, fmt.max_val)
+    lo = torch.tensor(fmt.min_val, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(fmt.max_val, dtype=x.dtype, device=x.device)
+    clipped = torch.minimum(torch.maximum(x, lo), hi)
     return _STERound.apply(clipped * fmt.scale) / fmt.scale

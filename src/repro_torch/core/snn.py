@@ -2,15 +2,17 @@
 
 Parameters are a plain dict ``{"layer{i}": {"w", "b", "beta_raw",
 "threshold"}}`` of tensors, the reference's layout: ``w`` is (fan_in,
-fan_out), ``beta_raw`` is pre-sigmoid.  ``forward`` is the dense
-inference pass; dropout and the training loss wait for the training port.
+fan_out), ``beta_raw`` is pre-sigmoid.  ``forward`` is the dense pass
+(dropout on the hidden spikes in train mode); ``loss_fn`` is the membrane
+cross-entropy that dense BPTT differentiates, the gradient-parity anchor
+of the event-driven trainer (``sparse_train``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,17 +115,36 @@ def quantized(params: Params) -> Params:
     }
 
 
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator
+) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``.  The draws come from
+    ``generator``, which must live on ``x``'s device."""
+    u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    keep = (u < 1.0 - rate).to(x.dtype)
+    return x * keep / (1.0 - rate)
+
+
 def forward(
     params: Params,
     spikes: torch.Tensor,  # (T, B, input_size) in {0,1}
     cfg: SNNConfig,
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the SNN over the coding window (inference mode).
+    """Run the SNN over the coding window.
 
+    In train mode with ``cfg.dropout_rate > 0`` the first layer's spikes
+    go through ``dropout``, one mask per step drawn from ``generator``.
     Returns (out_mem (T, B, n_class), out_spikes (T, B, n_class)).
     """
     ncfg = cfg.neuron_cfg
     p = quantized(params) if cfg.quant_q115 else params
+    drop = train and cfg.dropout_rate > 0.0
+    if drop and generator is None:
+        raise ValueError("a generator is required when train=True")
     B = spikes.shape[1]
     states = [
         neuron.init_state(
@@ -144,9 +165,22 @@ def forward(
                 beta=effective_beta(lp),
                 threshold=lp["threshold"],
             )
+            if i == 0 and drop:
+                h = dropout(h, cfg.dropout_rate, generator)
         out_mem.append(states[-1].u)
         out_spikes.append(h)
     return torch.stack(out_mem), torch.stack(out_spikes)
+
+
+def membrane_ce_loss(out_mem: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy on the output membrane trace (T, B, C), summed over
+    all time steps and averaged over the batch (paper: 'Cross-entropy
+    loss is computed across all time steps, summing up to form the total
+    loss')."""
+    logp = torch.log_softmax(out_mem, dim=-1)
+    onehot = torch.nn.functional.one_hot(labels.long(), out_mem.shape[-1])
+    ce_per_step = -torch.sum(onehot.to(logp.dtype)[None] * logp, dim=-1)
+    return torch.mean(torch.sum(ce_per_step, dim=0))
 
 
 def predict_from_traces(
@@ -156,3 +190,22 @@ def predict_from_traces(
     tie-broken by membrane sum so all-zero-spike batches still predict."""
     counts = torch.sum(out_spikes, dim=0)  # (B, C)
     return torch.argmax(counts + 1e-6 * torch.sum(out_mem, dim=0), dim=-1)
+
+
+def loss_fn(
+    params: Params,
+    spikes: torch.Tensor,  # (T, B, input_size)
+    labels: torch.Tensor,  # (B,) int class labels
+    cfg: SNNConfig,
+    *,
+    train: bool = True,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Membrane cross-entropy loss (see ``membrane_ce_loss``) + metrics."""
+    out_mem, out_spikes = forward(
+        params, spikes, cfg, train=train, generator=generator
+    )
+    loss = membrane_ce_loss(out_mem, labels)
+    pred = predict_from_traces(out_mem, out_spikes)
+    acc = torch.mean((pred == labels).to(torch.float32))
+    return loss, {"accuracy": acc, "spike_rate": torch.mean(out_spikes)}

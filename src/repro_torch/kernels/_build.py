@@ -33,6 +33,7 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C signature of each source's launcher: (symbol, argtypes)
 SIGNATURES: Dict[str, Tuple[str, list]] = {
+    "aer_matmul": ("aer_matmul_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "snn_chunk": (
         "snn_chunk_launch",
         [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,

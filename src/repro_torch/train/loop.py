@@ -1,0 +1,288 @@
+"""Training loop substrate: step builder, grad accumulation, metrics,
+checkpoint/restart, straggler watchdog and ``repro_torch.obs`` wiring.
+
+A model is any object with ``init(seed) -> (params, aux)`` and
+``loss(params, batch) -> (loss, metrics)``; params are a tree
+(``repro_torch.tree``) of float tensors.  ``make_train_step`` builds the
+eager step: autograd over the loss, the optimizer update, a new state.
+
+Every ``Trainer`` carries a ``MetricsRegistry`` (``trainer.metrics``:
+step-time / loss / grad-norm histograms, step counters, latest-metrics
+gauges under ``train.metrics.*``), a ``TraceRecorder`` (``trainer.trace``:
+one span per sync window on the ``train`` track, straggler warnings as
+instants) and a ``TimeSeriesSampler`` (``trainer.timeseries``: one point
+per log window).  The host reads device values only at ``log_every``
+sync windows, in one transfer, so a step never waits on the device and
+the instruments add no sync of their own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.timeseries import TimeSeriesSampler
+from repro_torch.obs.trace import TraceRecorder
+from repro_torch.optim.adam import Optimizer, apply_updates, global_norm
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+Tree = Any
+
+
+class TrainState(NamedTuple):
+    params: Tree
+    opt_state: Tree
+    step: int  # host-side counter: reading it never waits on the device
+
+
+def make_train_step(
+    model, optimizer: Optimizer, accum_steps: int = 1
+) -> Callable:
+    """(state, batch) -> (state, metrics).  With accum_steps > 1 the
+    batch's leading dim must be (accum_steps * microbatch); gradients are
+    summed over the microbatches in order and averaged."""
+
+    def grads_of(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, metrics = model.loss(live, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+        return loss.detach(), metrics, tree_unflatten(params, list(grads))
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        params, opt_state = state.params, state.opt_state
+        if accum_steps == 1:
+            loss, metrics, grads = grads_of(params, batch)
+        else:
+            gsum, lsum = None, 0.0
+            for j in range(accum_steps):
+                mb = {
+                    k: v.reshape(accum_steps, -1, *v.shape[1:])[j]
+                    for k, v in batch.items()
+                }
+                l, _, g = grads_of(params, mb)
+                gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+                lsum = lsum + l
+            grads = tree_map(lambda g: g / accum_steps, gsum)
+            loss = lsum / accum_steps
+            metrics = {"loss": loss}
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
+            metrics = dict(metrics)
+            metrics["grad_norm"] = global_norm(grads)
+        return TrainState(params, opt_state, state.step + 1), metrics
+
+    return train_step
+
+
+@dataclasses.dataclass
+class StragglerWatchdog:
+    """Wall-time monitor over whatever cadence the caller feeds it.  An
+    observation above ``factor`` x the running median marks this host a
+    straggler candidate.  ``Trainer.run`` feeds it the mean step time of
+    each sync window, so a persistent slowdown trips it and a single slow
+    step inside a window is diluted; ``warmup`` counts observations."""
+
+    factor: float = 3.0
+    warmup: int = 5
+    _times: list = dataclasses.field(default_factory=list)
+
+    def observe(self, dt: float) -> Optional[str]:
+        self._times.append(dt)
+        if len(self._times) <= self.warmup:
+            return None
+        hist = sorted(self._times[:-1])
+        median = hist[len(hist) // 2]
+        if dt > self.factor * median:
+            return (
+                f"straggler: step took {dt:.3f}s vs median {median:.3f}s "
+                f"(x{dt / median:.1f})"
+            )
+        return None
+
+
+class Trainer:
+    """Checkpoint/restart-capable loop driving the step function."""
+
+    def __init__(
+        self,
+        model,
+        optimizer: Optimizer,
+        ckpt_dir: Optional[str] = None,
+        ckpt_every: int = 100,
+        keep_n: int = 3,
+        accum_steps: int = 1,
+    ):
+        self.model = model
+        self.optimizer = optimizer
+        self.step_fn = make_train_step(model, optimizer, accum_steps)
+        self.ckpt = (
+            CheckpointManager(ckpt_dir, keep_n=keep_n, async_save=True)
+            if ckpt_dir
+            else None
+        )
+        self.ckpt_every = ckpt_every
+        self.watchdog = StragglerWatchdog()
+        # the run's seed rides in the checkpoint payload; init_state and
+        # restore_or_init overwrite this placeholder
+        self.rng = 0
+        self._make_instruments()
+
+    # ----------------------------------------------------- observability
+    def _make_instruments(self) -> None:
+        self.metrics = MetricsRegistry()
+        self.trace = TraceRecorder(capacity=4096)
+        m = self.metrics
+        self._m_steps = m.counter("train.steps")
+        self._m_windows = m.counter("train.windows")
+        self._m_stragglers = m.counter("train.straggler_warnings")
+        self._m_step_time = m.histogram("train.step_time_s", lo=1e-5, hi=1e4)
+        self._m_loss = m.histogram("train.loss", lo=1e-6, hi=1e6)
+        self._m_grad = m.histogram("train.grad_norm", lo=1e-9, hi=1e9)
+        self.timeseries = TimeSeriesSampler(m, capacity=4096)
+
+    def _record_window_metrics(
+        self, metrics: Dict[str, float], window_steps: int, dt: float
+    ) -> None:
+        """Fold one sync window's observations into the registry:
+        ``metrics`` is the last step's metric dict (host floats), ``dt``
+        the window's mean per-step wall time.  ``train.metrics.*`` gauges
+        carry the latest observation, equal to ``run()``'s returned
+        metrics.  Subclasses add workload instruments."""
+        self._m_steps.inc(window_steps)
+        self._m_windows.inc()
+        self._m_step_time.record(dt)
+        if "loss" in metrics:
+            self._m_loss.record(metrics["loss"])
+        if "grad_norm" in metrics:
+            self._m_grad.record(metrics["grad_norm"])
+        for k, v in metrics.items():
+            self.metrics.gauge(f"train.metrics.{k}").set(v)
+
+    def export_obs(self, metrics_json=None, trace_out=None,
+                   timeseries_out=None, log_fn=print) -> None:
+        """Write whichever observability sidecars were requested: the
+        registry snapshot (JSON), the Chrome trace, the time series
+        (JSONL)."""
+        if metrics_json:
+            self.metrics.write_json(metrics_json)
+            log_fn(f"train metrics snapshot -> {metrics_json}")
+        if trace_out:
+            self.trace.write(trace_out)
+            log_fn(f"train trace ({len(self.trace)} spans) -> {trace_out}")
+        if timeseries_out:
+            self.timeseries.write_jsonl(timeseries_out)
+            log_fn(
+                f"train time series ({len(self.timeseries)} samples) -> "
+                f"{timeseries_out}"
+            )
+
+    def init_state(self, seed: int) -> TrainState:
+        self.rng = int(seed)
+        params, _ = self.model.init(self.rng)
+        return TrainState(params, self.optimizer.init(params), 0)
+
+    # ------------------------------------------------- checkpoint payload
+    def _checkpoint_metric_names(self):
+        """Lifetime counters persisted in the checkpoint payload, so a
+        restored run continues its accounting."""
+        return ["train.steps", "train.windows", "train.straggler_warnings"]
+
+    def _ckpt_tree(self, state: TrainState) -> Dict:
+        """The full resume state as one tree: params, optimizer state and
+        step, the run's seed and the lifetime counters."""
+        return {
+            "state": state,
+            "rng": self.rng,
+            "metrics": {
+                name: float(self.metrics.counter(name).value)
+                for name in self._checkpoint_metric_names()
+            },
+        }
+
+    def restore_or_init(self, seed: int) -> TrainState:
+        """Resume from the newest intact checkpoint (a corrupt one falls
+        back to the previous keep-N save), restoring params, optimizer
+        state, step, seed and lifetime counters; init fresh from ``seed``
+        when no usable checkpoint exists."""
+        state = self.init_state(seed)
+        if self.ckpt is not None:
+            _, restored = self.ckpt.restore_latest(self._ckpt_tree(state))
+            if restored is not None:
+                self.rng = restored["rng"]
+                for name, v in restored["metrics"].items():
+                    c = self.metrics.counter(name)
+                    c.inc(float(v) - c.value)
+                return restored["state"]
+        return state
+
+    def run(
+        self,
+        state: TrainState,
+        batches: Iterator[Dict[str, torch.Tensor]],
+        num_steps: int,
+        log_every: int = 10,
+        log_fn=print,
+    ) -> Tuple[TrainState, Dict[str, float]]:
+        """Drive ``num_steps`` training steps.
+
+        The host reads the device only at ``log_every`` sync windows (and
+        the last step): the window's metrics come back in one transfer,
+        which is also what waits for the device.  In between, steps are
+        enqueued while earlier ones run.  The watchdog observes the mean
+        step time of each window.
+        """
+        last_metrics: Dict[str, float] = {}
+        step0 = int(state.step)
+        t_window = time.perf_counter()
+        window_steps = 0
+        for i in range(num_steps):
+            state, metrics = self.step_fn(state, next(batches))
+            window_steps += 1
+            step_no = step0 + i + 1
+            if i % log_every == 0 or i == num_steps - 1:
+                names = list(metrics)
+                values = torch.stack(
+                    [metrics[k].to(torch.float32) for k in names]
+                ).tolist()  # the window's one device read
+                t_now = time.perf_counter()
+                dt = (t_now - t_window) / window_steps
+                warn = self.watchdog.observe(dt)
+                if warn:
+                    log_fn(f"[watchdog] {warn}")
+                    self._m_stragglers.inc()
+                    self.trace.instant(
+                        "straggler", t_now, track="train",
+                        args={"step": step_no, "mean_step_s": dt},
+                    )
+                last_metrics = dict(zip(names, values))
+                self._record_window_metrics(last_metrics, window_steps, dt)
+                self.trace.span(
+                    "window", t_window, t_now, track="train",
+                    args={
+                        "step": step_no,
+                        "steps": window_steps,
+                        "ms_per_step": dt * 1e3,
+                        "loss": last_metrics.get("loss"),
+                    },
+                )
+                self.timeseries.sample(t_now)
+                t_window = time.perf_counter()
+                window_steps = 0
+                log_fn(
+                    f"step {step_no}: "
+                    + " ".join(f"{k}={v:.4f}" for k, v in last_metrics.items())
+                    + f" ({dt * 1e3:.0f} ms/step)"
+                )
+            if self.ckpt is not None and step_no % self.ckpt_every == 0:
+                self.ckpt.save(step_no, self._ckpt_tree(state))
+        if self.ckpt is not None:
+            self.ckpt.save(step0 + num_steps, self._ckpt_tree(state))
+            self.ckpt.close()  # join the async writer before returning
+        return state, last_metrics

@@ -40,7 +40,8 @@ def test_build_all_compiles_each_source_once(tmp_path, monkeypatch, build_dir):
     assert PTXAS in report["snn_chunk"]["log"]
     lib = _build.library_path("snn_chunk")
     assert lib.parent == build_dir and lib.read_text() == "built\n"
-    assert [p.name for p in build_dir.iterdir()] == [lib.name]  # no temp left
+    built = sorted(_build.library_path(n).name for n in _build.SIGNATURES)
+    assert sorted(p.name for p in build_dir.iterdir()) == built  # no temp left
     assert _build.build_all()["snn_chunk"]["log"] == "cached"
 
 

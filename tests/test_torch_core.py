@@ -45,10 +45,15 @@ def test_quant_codes_and_fake_quant_bit_exact(fmt):
 
 
 def test_fake_quant_straight_through_gradient():
-    # away from the clip bounds themselves: exactly at a bound jnp.clip
-    # splits the gradient 0.5/0.5 while torch.clamp passes it whole
+    # inside, outside and exactly on the clip bounds, where the gradient
+    # splits 0.5/0.5 between the input and the bound
     x = _values(256)
-    x = x[(x != quant.Q1_15.min_val) & (x != quant.Q1_15.max_val)]
+    fmt = quant.Q1_15
+    x = np.concatenate(
+        [x, np.float32([fmt.min_val, fmt.max_val, fmt.min_val - 0.5,
+                        fmt.max_val + 0.5])]
+    ).astype(np.float32)
+    assert (x == fmt.min_val).any() and (x == fmt.max_val).any()
     xt = t(x).requires_grad_(True)
     quant.fake_quant(xt).sum().backward()
     ref_g = jax.grad(lambda v: ref_quant.fake_quant(v).sum())(jnp.asarray(x))

@@ -1,5 +1,5 @@
-"""The CUDA ``snn_chunk`` kernel against its plain PyTorch version, on the
-card.  Imports neither JAX nor the reference, so it runs where only the
+"""The CUDA kernels (``snn_chunk``, ``aer_spike_matmul_batched``) against
+their plain PyTorch versions, on the card.  Imports neither JAX nor the reference, so it runs where only the
 port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core import neuron, snn
 from repro_torch.events import runtime
+from repro_torch.kernels import aer_matmul as aer_mod
 from repro_torch.kernels import snn_chunk as chunk_mod
 
 CASES = ["zero", "subtract", "refractory", "lapicque", "q115", "frozen",
@@ -21,7 +22,7 @@ CASES = ["zero", "subtract", "refractory", "lapicque", "q115", "frozen",
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the snn_chunk kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -108,3 +109,55 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
                             [torch.zeros(6, 60000, dtype=torch.int32,
                                          device=cuda_device)],
                             (a % 64), v, c, act, layout=layout)
+
+
+def _aer_inputs(B, E, K, N, rate, int16, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, K, (B, E)).astype(np.int32)
+    a[0, :4] = [-1, K, K + 9, 0]  # corrupt addresses are skipped
+    v = np.where(rng.random((B, E)) < rate,
+                 rng.choice([-1.0, 1.0, 0.5], (B, E)), 0.0).astype(np.float32)
+    v[-1] = 0.0  # a stream with no event
+    if int16:
+        w = rng.integers(-32768, 32768, (K, N)).astype(np.int16)
+        v = np.rint(v).astype(np.int32)
+    else:
+        w = rng.normal(0, 0.05, (K, N)).astype(np.float32)
+    return (torch.from_numpy(a).to(dev), torch.from_numpy(v).to(dev),
+            torch.from_numpy(w).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int16", [False, True])
+@pytest.mark.parametrize("shape", [(32, 4096, 4096, 512, 0.9),
+                                   (32, 4096, 4096, 512, 0.01),
+                                   (32, 512, 512, 2, 0.2),
+                                   (5, 300, 77, 200, 0.3)])
+def test_aer_kernel_matches_plain_version_on_card(cuda_device, int16, shape):
+    a, v, w = _aer_inputs(*shape, int16, cuda_device)
+    before = aer_mod.aer_spike_matmul_batched.launches
+    got = aer_mod.aer_spike_matmul_batched(a, v, w)
+    assert aer_mod.aer_spike_matmul_batched.launches == before + 1
+    ref = aer_mod.aer_spike_matmul_batched_ref(a, v, w)
+    torch.cuda.synchronize()
+    assert got.dtype == (torch.int32 if int16 else torch.float32)
+    assert torch.equal(got, ref)
+    assert not got[-1].any()
+
+
+@pytest.mark.cuda
+def test_aer_kernel_rejects_what_it_cannot_take(cuda_device):
+    a, v, w = _aer_inputs(4, 64, 32, 8, 0.5, False, cuda_device)
+    fn = aer_mod.aer_spike_matmul_batched
+    with pytest.raises(TypeError, match="int32"):
+        fn(a.long(), v, w)
+    with pytest.raises(TypeError, match="float32 values"):
+        fn(a, v.to(torch.int32), w)
+    with pytest.raises(TypeError, match="int16 or float32"):
+        fn(a, v, w.half())
+    with pytest.raises(ValueError, match="values"):
+        fn(a, v[:, :10], w)
+    with pytest.raises(ValueError, match=r"\(B, E\)"):
+        fn(a[0], v[0], w)
+    with pytest.raises(ValueError, match="device"):
+        fn(a, v, w.cpu())
