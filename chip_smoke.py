@@ -31,7 +31,23 @@ Phases, in order; any failure exits non-zero:
    (steps x T x L aer launches), one step bit-equal in loss and gradients
    to the same step on the plain version, and two seeded runs
    bit-identical; prints ms/step and a ``torch.profiler`` breakdown.
-7. Prints the kernel table as one JSON line, then ``{"ok": true, ...}`` as
+7. Hardware path (the public kernel API, ``repro_torch.kernels.ops``):
+   ``ops.snn_layer_forward`` layer by layer at 4096-512-2, T = 25, B = 8
+   over deterministically rate-coded collision images, with refractory 0
+   and 5 (2 ``spike_matmul`` + 2 ``lif_fused`` launches a forward), then
+   ``ops.aer_spike_matmul`` on the busiest coded step of each frame and
+   ``ops.q115_matmul`` at the hardware path's and kernel_bench's shapes.
+   Checks the launch counts, output spike trains equal to the same
+   forward through the plain versions, and prints the wall time per
+   forward and the table-4 op count from ``hidden_spike_rates``.
+8. Kernels against plain versions at the hardware path's shapes:
+   ``lif_fused`` (reset zero and subtract, refractory 0 and 5),
+   ``spike_matmul`` (both layers), ``aer_spike_matmul`` (each frame's
+   busiest step, also against ``spike_matmul`` on the same row) and
+   ``q115_matmul`` (saturate True and False, both shapes), all bit-exact;
+   times each kernel, its plain version and its library yardstick where
+   one PyTorch call computes the same function, and computes its bound.
+9. Prints the kernel table as one JSON line, then ``{"ok": true, ...}`` as
    the last line.
 
 There is no CPU fallback: without a CUDA device the script exits 2.
@@ -49,8 +65,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SLOTS, TC, SEED = 8, 5, 0
 TRAIN_BATCH, TRAIN_STEPS = 32, 3
+HW_BATCH = 8  # benchmarks/table4_network.py's batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+INT8_TC_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
+# int32 lanes of the CUDA cores: 132 SMs x 64 lanes x 1.98 GHz boost (the
+# clock at which 128 float32 lanes give the 67 TFLOP/s above)
+INT32_OPS = 132 * 64 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -116,6 +137,46 @@ def cuda_ms(fn, reps=20, rounds=5):
     return statistics.median(times)
 
 
+def device_time_us(torch, prof):
+    """Device time by name (us) of the kernels, copies and fills a
+    ``torch.profiler`` run put on the card.  Only device-side events are
+    summed: an operator's own entry repeats the time of the kernels it
+    launched, and adding both would count that time twice."""
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.key] = us
+    return out
+
+
+def device_ms(fn, reps=20):
+    """Mean device time of one call of ``fn`` (ms): the summed durations of
+    everything its calls ran on the card, from ``torch.profiler``, so host
+    time between launches is left out.  None when the profiler recorded no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_time_us(torch, prof).values())
+    return us / reps / 1e3 if us > 0 else None
+
+
+def bound_of(nbytes, ops, rate):
+    """(bound_by, ms): the larger of bytes over the memory rate and
+    operations over ``rate``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return ("bytes", t_bytes) if t_bytes >= t_ops else ("operations", t_ops)
+
+
 def chunk_bound(args, events, widths):
     """Least time for one chunk on an H100 SXM: the larger of the bytes it
     must move over the memory rate and its float32 operations over the
@@ -145,11 +206,9 @@ def chunk_bound(args, events, widths):
     # neuron update a multiply, two adds and a compare
     hidden = sum(int(events[:, i].sum()) * N[i] for i in range(1, len(N)))
     flops = 2 * n_events * N[0] + 2 * hidden + 4 * Tc * B * total
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    bound = ("bytes", t_bytes) if t_bytes >= t_ops else ("operations", t_ops)
-    return bound, {"events": n_events, "distinct_w0_rows": rows,
-                   "bytes": nbytes, "flops": flops}
+    return bound_of(nbytes, flops, F32_FLOPS), {
+        "events": n_events, "distinct_w0_rows": rows, "bytes": nbytes,
+        "flops": flops}
 
 
 def phase_kernel(torch, dev, params_np, card):
@@ -347,11 +406,7 @@ def profile_main(torch, eng, reqs, card):
         eng.run(reqs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0:
-            device_us[ev.key] = us
+    device_us = device_time_us(torch, prof)
     busy_ms = sum(device_us.values()) / 1e3
     if busy_ms == 0:
         print("profile: the profiler recorded no device time: not measured")
@@ -377,7 +432,8 @@ def aer_bound(addrs, values, weights):
     """Least time for one ``aer_spike_matmul_batched`` call on an H100 SXM:
     the larger of the bytes it must move (the W rows this call's live
     events touch, the live events' addresses and values, the output) over
-    the memory rate and its multiply-adds over the float32 rate."""
+    the memory rate and its multiply-adds over the float32 rate (the
+    int32 rate for int16 weights)."""
     import torch
 
     K, N = weights.shape
@@ -387,11 +443,10 @@ def aer_bound(addrs, values, weights):
     nbytes = (rows * N * weights.element_size() + n_live * 8
               + addrs.shape[0] * N * 4)
     flops = 2 * n_live * N
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    bound = ("bytes", t_bytes) if t_bytes >= t_ops else ("operations", t_ops)
-    return bound, {"events": n_live, "distinct_rows": rows, "bytes": nbytes,
-                   "flops": flops}
+    rate = INT32_OPS if weights.dtype == torch.int16 else F32_FLOPS
+    return bound_of(nbytes, flops, rate), {
+        "events": n_live, "distinct_rows": rows, "bytes": nbytes,
+        "flops": flops}
 
 
 def phase_aer_kernel(torch, dev, params_np, card):
@@ -569,11 +624,7 @@ def profile_train(torch, tr, batches, card):
         tr.run(state, it, 2, log_every=2, log_fn=lambda _: None)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device_us = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0:
-            device_us[ev.key] = us
+    device_us = device_time_us(torch, prof)
     busy_ms = sum(device_us.values()) / 1e3
     if busy_ms == 0:
         print("profile train: the profiler recorded no device time: not measured")
@@ -585,6 +636,301 @@ def profile_train(torch, tr, batches, card):
           f"{aer_ms:.2f} ms ({aer_ms / busy_ms:.1%} of busy) | on {card}")
     for name, us in top:
         print(f"profile train:   {us / 1e3:8.3f} ms  {name[:90]}")
+
+
+def timed(kernel, plain, library=None):
+    """Times of one call (ms): device time of the kernel's wrapper, its
+    plain version and its library yardstick (``device_ms``), and the
+    kernel's per-call time from CUDA events around back-to-back calls,
+    which the wrapper's host time paces when it is the longer."""
+    def dev(fn, reps):
+        ms = device_ms(fn, reps)
+        if ms is None:
+            print("timing: the profiler recorded no device time; CUDA-event "
+                  "time per call is used instead")
+            return cuda_ms(fn, reps=reps, rounds=3)
+        return ms
+
+    return {"ms": dev(kernel, 20), "plain_ms": dev(plain, 5),
+            "library_ms": None if library is None else dev(library, 20),
+            "call_ms": cuda_ms(kernel)}
+
+
+def hw_forward(ops, snn, params, spikes, refractory):
+    """The hardware path layer by layer; every layer's output spikes."""
+    outs, h = [], spikes
+    for i in range(len(params)):
+        lp = params[f"layer{i}"]
+        h = ops.snn_layer_forward(h, lp["w"], lp["b"], snn.effective_beta(lp),
+                                  lp["threshold"], refractory_steps=refractory)
+        outs.append(h)
+    return outs
+
+
+def hw_inputs(torch, dev, params_np):
+    """Params on the card, the rate-coded (T, B, 4096) train of B collision
+    images, each frame's busiest coded step as an event list, and the Q1.15
+    operands of the two ``q115_matmul`` shapes."""
+    import numpy as np
+
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.core import coding, quant, snn
+    from repro_torch.events import runtime
+
+    params = snn.params_from_numpy(params_np, dev)
+    x = torch.from_numpy(images(HW_BATCH, SEED + 5)).to(dev)
+    spikes = coding.rate_encode_deterministic(x, CONFIG.num_steps)
+    K = spikes.shape[-1]
+    # deterministic coding fires a pixel first once t * p reaches 1, so the
+    # first steps are nearly silent: take the busiest step for the events
+    t_ev = int(spikes.sum((1, 2)).argmax())
+    addrs, values, _ = runtime.step_events(spikes[t_ev], K)  # (B, K) each
+    wq = [quant.quantize(params[f"layer{i}"]["w"]) for i in range(len(params))]
+    rng = np.random.default_rng(SEED + 6)
+    xq = rng.integers(-(2**15), 2**15, (spikes.shape[0] * HW_BATCH, K))
+    xq[0] = -(2**15)  # the extreme code, whose square is 2^30
+    bench = [rng.integers(-(2**15), 2**15, s) for s in ((128, 512), (512, 128))]
+    # name: (x, w, saturate): kernel_bench's shape saturates as it does;
+    # the 4096-wide sum is kept raw, since it would saturate
+    q_cases = {
+        "200x4096x512": (torch.from_numpy(xq.astype(np.int16)).to(dev), wq[0],
+                         False),
+        "128x512x128": (*(torch.from_numpy(b.astype(np.int16)).to(dev)
+                          for b in bench), True),
+    }
+    return params, spikes, t_ev, addrs, values.to(torch.int8), wq, q_cases
+
+
+def phase_hw_path(torch, dev, params_np, card):
+    """Phase 7: the paper's Fig. 5 hardware path through the public kernel
+    API on the card, then the API's event and Q1.15 products."""
+    from unittest import mock
+
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.core import energy, snn
+    from repro_torch.kernels import ops, ref
+
+    params, spikes, t_ev, addrs, values, wq, q_cases = hw_inputs(
+        torch, dev, params_np)
+    B = HW_BATCH
+    counted = (ops.spike_matmul, ops.lif_fused, ops.aer_spike_matmul,
+               ops.q115_matmul)
+
+    def run():
+        outs = {r: hw_forward(ops, snn, params, spikes, r) for r in (0, 5)}
+        aer = [ops.aer_spike_matmul(addrs[b], values[b], wq[0]) for b in range(B)]
+        q = {name: ops.q115_matmul(x, w, saturate=sat)
+             for name, (x, w, sat) in q_cases.items()}
+        return outs, aer, q
+
+    run()  # warm-up: first launches, allocator
+    torch.cuda.synchronize()
+    for fn in counted:  # the main path: counts from 0, read right after
+        fn.launches = 0
+    outs, aer, q = run()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    L = CONFIG.num_layers
+    want = {"spike_matmul": 2 * L, "lif_fused": 2 * L, "aer_spike_matmul": B,
+            "q115_matmul": len(q_cases)}
+    if launches != want:
+        fail(f"hardware path launches {launches}, want {want}")
+
+    with mock.patch.object(ops, "spike_matmul", ref.spike_matmul_ref), \
+            mock.patch.object(ops, "lif_fused", ref.lif_fused_ref):
+        plain = {r: hw_forward(ops, snn, params, spikes, r) for r in (0, 5)}
+    for r in (0, 5):
+        for i, (got, exp) in enumerate(zip(outs[r], plain[r])):
+            if got.shape != (CONFIG.num_steps, B, CONFIG.layer_sizes[i + 1]):
+                fail(f"hardware path layer {i}: shape {tuple(got.shape)}")
+            if not torch.equal(got, exp):
+                fail(f"hardware path, refractory {r}, layer {i}: spikes differ "
+                     f"from the forward through the plain versions")
+    dense = ref.spike_matmul_ref(spikes[t_ev].to(torch.int8), wq[0])
+    for b in range(B):
+        if not torch.equal(aer[b], dense[b]):
+            fail(f"aer_spike_matmul frame {b}: differs from the dense product")
+    for name, (x, w, sat) in q_cases.items():
+        exp = (ref.q115_matmul_ref if sat else ref.q115_matmul_acc_ref)(x, w)
+        if not torch.equal(q[name], exp):
+            fail(f"q115_matmul {name}: differs from its plain version")
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hw_forward(ops, snn, params, spikes, 0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    cfg = snn.SNNConfig(layer_sizes=CONFIG.layer_sizes,
+                        num_steps=CONFIG.num_steps)
+    rates = snn.hidden_spike_rates(params, spikes, cfg)
+    opcount = energy.snn_inference_ops(
+        cfg.layer_sizes, cfg.num_steps,
+        [float(spikes.mean())] + [float(x) for x in rates][:-1],
+    )
+    qat = snn.SNNConfig(layer_sizes=CONFIG.layer_sizes,
+                        num_steps=CONFIG.num_steps, quant_q115=True)
+    _, float_spk = snn.forward(params, spikes, qat)
+    agree = int((outs[0][-1].sum(0).argmax(-1) ==
+                 float_spk.sum(0).argmax(-1)).sum())
+    counts = {r: [int(o.sum()) for o in outs[r]] for r in (0, 5)}
+    print(f"hardware path: {'-'.join(map(str, CONFIG.layer_sizes))} "
+          f"T={CONFIG.num_steps} B={B}, input spikes {int(spikes.sum())} | "
+          f"launches {launches} | output spikes per layer: refractory 0 "
+          f"{counts[0]}, refractory 5 {counts[5]} (equal to the plain-"
+          f"version forward) | {wall_ms:.3f} ms/forward | on {card}")
+    print(f"hardware path: hidden spike rates {[round(float(x), 5) for x in rates]}"
+          f" -> {opcount.total_ops():.4e} ops, {opcount.energy_pj():.4e} pJ "
+          f"per inference (table 4's event model) | argmax agrees with the "
+          f"Q1.15 float graph on {agree}/{B} (not gated)")
+    return {"launches": launches, "wall_ms": wall_ms, "params": params,
+            "spikes": spikes, "hidden": outs[0][0], "t_ev": t_ev, "addrs": addrs,
+            "values": values, "wq": wq, "q_cases": q_cases}
+
+
+def _layer_currents(torch, ref, spk_i8, wq, b, T):
+    from repro_torch.core import quant
+
+    acc = ref.spike_matmul_ref(spk_i8, wq) + quant.quantize(b).to(torch.int32)
+    return (acc.to(torch.float32) / quant.Q1_15.scale).reshape(T, HW_BATCH, -1)
+
+
+def phase_ops_kernels(torch, dev, hw, card):
+    """Phase 8: each kernel of the public API against its plain version at
+    the hardware path's shapes; times, bounds, library yardsticks."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import snn
+    from repro_torch.kernels import ops, ref
+
+    params, spikes, wq = hw["params"], hw["spikes"], hw["wq"]
+    T = spikes.shape[0]
+    planes = [spikes.reshape(T * HW_BATCH, -1).to(torch.int8),
+              hw["hidden"].reshape(T * HW_BATCH, -1).to(torch.int8)]
+    out = {}
+
+    # lif_fused
+    worst = 0.0
+    for i, plane in enumerate(planes):
+        lp = params[f"layer{i}"]
+        cur = _layer_currents(torch, ref, plane, wq[i], lp["b"], T)
+        beta, thr = snn.effective_beta(lp), lp["threshold"]
+        for reset in ("zero", "subtract"):
+            for r in (0, 5):
+                kw = dict(refractory_steps=r, reset=reset)
+                got, exp = ops.lif_fused(cur, beta, thr, **kw), ref.lif_fused_ref(cur, beta, thr, **kw)
+                torch.cuda.synchronize()
+                err = float((got[1] - exp[1]).abs().max())
+                if not (torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])):
+                    fail(f"lif_fused layer {i} {reset} refractory {r}: differs "
+                         f"from its plain version (max |d u| {err})")
+                worst = max(worst, err)
+        if i == 0:
+            args = (cur, beta, thr)
+    Tn, Bn, N = args[0].shape
+    bound = bound_of((2 * Tn * Bn * N + Bn * N + 2 * N) * 4, 5 * Tn * Bn * N,
+                     F32_FLOPS)
+    out["lif_fused"] = {**timed(lambda: ops.lif_fused(*args),
+                               lambda: ref.lif_fused_ref(*args)),
+                        "bound_by": bound[0], "bound_ms": bound[1],
+                        "max_abs_err": worst}
+
+    # spike_matmul
+    for i, plane in enumerate(planes):
+        if not torch.equal(ops.spike_matmul(plane, wq[i]),
+                           ref.spike_matmul_ref(plane, wq[i])):
+            fail(f"spike_matmul layer {i}: differs from its plain version")
+    s0, w0 = planes[0], wq[0]
+    M, K = s0.shape
+    N = w0.shape[1]
+    sd, wd = s0.double(), w0.double()  # the casts stay outside the timed call
+    lib_exact = torch.equal(torch.matmul(sd, wd).to(torch.int32),
+                            ops.spike_matmul(s0, w0))
+    bound = bound_of(M * K + K * N * 2 + M * N * 4, 4 * M * K * N, INT8_TC_OPS)
+    out["spike_matmul"] = {**timed(lambda: ops.spike_matmul(s0, w0),
+                                   lambda: ref.spike_matmul_ref(s0, w0),
+                                   lambda: torch.matmul(sd, wd)),
+                           "bound_by": bound[0], "bound_ms": bound[1],
+                           "max_abs_err": 0.0, "nonzero": int((s0 != 0).sum())}
+
+    # aer_spike_matmul
+    addrs, values = hw["addrs"], hw["values"]
+    dense = ref.spike_matmul_ref(spikes[hw["t_ev"]].to(torch.int8), w0)
+    for b in range(HW_BATCH):
+        got = ops.aer_spike_matmul(addrs[b], values[b], w0)
+        if not (torch.equal(got, ref.aer_spike_matmul_ref(addrs[b], values[b], w0))
+                and torch.equal(got, dense[b])):
+            fail(f"aer_spike_matmul frame {b}: differs from its plain version "
+                 f"or from spike_matmul on the same row")
+    a0, v0 = addrs[0], values[0]
+    vd, wd0 = v0.double()[None], w0.double()
+    bound, work = aer_bound(a0[None], v0[None], w0)
+    out["aer_spike_matmul"] = {
+        **timed(lambda: ops.aer_spike_matmul(a0, v0, w0),
+                lambda: ref.aer_spike_matmul_ref(a0, v0, w0),
+                lambda: F.embedding_bag(a0[None], wd0, per_sample_weights=vd,
+                                        mode="sum")),
+        "bound_by": bound[0], "bound_ms": bound[1], "max_abs_err": 0.0,
+        "events": work["events"]}
+
+    # q115_matmul
+    for name, (x, w, _) in hw["q_cases"].items():
+        for sat in (True, False):
+            plain = ref.q115_matmul_ref if sat else ref.q115_matmul_acc_ref
+            if not torch.equal(ops.q115_matmul(x, w, saturate=sat), plain(x, w)):
+                fail(f"q115_matmul {name} saturate={sat}: differs from its "
+                     f"plain version")
+    q_times = {}
+    for name, (x, w, _) in hw["q_cases"].items():
+        M, K = x.shape
+        N = w.shape[1]
+        bound = bound_of(M * K * 2 + K * N * 2 + M * N * 4, 3 * M * K * N,
+                         INT32_OPS)
+        q_times[name] = {
+            **timed(lambda: ops.q115_matmul(x, w, saturate=False),
+                    lambda: ref.q115_matmul_acc_ref(x, w)),
+            "bound_by": bound[0], "bound_ms": bound[1], "max_abs_err": 0.0}
+    out["q115_matmul"] = q_times["200x4096x512"]
+
+    rows = [(k, v) for k, v in out.items() if k != "q115_matmul"]
+    for name, rec in rows + [("q115_matmul " + k, v) for k, v in q_times.items()]:
+        lib = rec["library_ms"]
+        print(f"ops kernel[{name}]: bit-exact | kernel {rec['ms']:.4f} ms "
+              f"(per call {rec['call_ms']:.4f} ms) | "
+              f"plain {rec['plain_ms']:.4f} ms | library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'} | bound "
+              f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}) | on {card}")
+    print(f"ops kernel[spike_matmul]: layer 0 {tuple(s0.shape)} x "
+          f"{tuple(w0.shape)}, {out['spike_matmul']['nonzero']} nonzero "
+          f"spikes; library = torch.matmul in float64 on operands cast "
+          f"before the timed call (exact: {lib_exact}) | aer: "
+          f"{out['aer_spike_matmul']['events']} events of frame 0's step "
+          f"{hw['t_ev']}; library = F.embedding_bag(mode='sum') in float64 | "
+          f"lif_fused, q115_matmul: no single PyTorch call computes a "
+          f"thresholded recurrence or per-product rounding | kernel, plain "
+          f"and library times are device time per call (torch.profiler); "
+          f"'per call' is CUDA events around back-to-back calls")
+    return out
+
+
+def ops_rows(hw, ops_k):
+    """Kernel-table rows of the public API's kernels (phases 7 and 8)."""
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+        "replaces": replaces,
+        "launches": hw["launches"][name],
+        **{k: ops_k[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")},
+    } for name, source, replaces in (
+        ("lif_fused", "lif_fused", "src/repro/kernels/lif_fused.py:82"),
+        ("spike_matmul", "spike_matmul", "src/repro/kernels/spike_matmul.py:67"),
+        ("aer_spike_matmul", "aer_matmul", "src/repro/kernels/aer_matmul.py:195"),
+        ("q115_matmul", "q115_matmul", "src/repro/kernels/q115_matmul.py:60"),
+    )]
 
 
 def main() -> int:
@@ -635,8 +981,12 @@ def main() -> int:
     aer = phase_aer_kernel(torch, dev, params_np, card)
     # 6. training path
     train_run = phase_train(torch, dev, card)
+    # 7. hardware path through the public kernel API
+    hw = phase_hw_path(torch, dev, params_np, card)
+    # 8. the API's kernels against their plain versions
+    ops_k = phase_ops_kernels(torch, dev, hw, card)
 
-    # 7. results
+    # 9. results
     dense = aer["layer0_dense_t0"]
     print(json.dumps({"kernels": [{
         "name": "snn_chunk",
@@ -662,7 +1012,7 @@ def main() -> int:
         "bound_ms": dense["bound_ms"],
         "bound_by": dense["bound_by"],
         "library_ms": dense["library_ms"],
-    }]}))
+    }] + ops_rows(hw, ops_k)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

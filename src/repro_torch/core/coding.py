@@ -73,3 +73,8 @@ def delta_encode(x_seq: torch.Tensor, threshold: float = 0.1) -> torch.Tensor:
         level = level + spike * threshold
         spikes.append(spike)
     return torch.stack(spikes)
+
+
+def spike_rate(spikes: torch.Tensor) -> torch.Tensor:
+    """Mean firing rate over the time axis, used by the energy model."""
+    return torch.mean(spikes, dim=0)

@@ -9,8 +9,11 @@ fake-quantized values are bit-exact against it.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +91,24 @@ def fake_quant(x: torch.Tensor, fmt: QFormat = Q1_15) -> torch.Tensor:
     hi = torch.tensor(fmt.max_val, dtype=x.dtype, device=x.device)
     clipped = torch.minimum(torch.maximum(x, lo), hi)
     return _STERound.apply(clipped * fmt.scale) / fmt.scale
+
+
+def quant_params(params, fmt: QFormat = Q1_15):
+    """Fake-quantize every float leaf of a params tree (Q1.15 mode)."""
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return fake_quant(x, fmt)
+        return x
+
+    return tree_map(leaf, params)
+
+
+def accumulator_bits(fan_in: int, fmt: QFormat = Q1_15) -> int:
+    """Bits needed to hold a fan_in-wide sum of Q-format values without
+    overflow: the paper's '28-bit intermediate result' for its adder tree.
+
+    A sum of ``fan_in`` Q1.15 values needs 16 + ceil(log2(fan_in)) bits;
+    e.g. fan_in=4096 -> 16+12 = 28 bits, exactly the paper's width.
+    """
+    return fmt.total_bits + max(1, math.ceil(math.log2(max(fan_in, 2))))

@@ -17,7 +17,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import neuron, quant
+from repro_torch.core import coding, neuron, quant
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -209,3 +209,44 @@ def loss_fn(
     pred = predict_from_traces(out_mem, out_spikes)
     acc = torch.mean((pred == labels).to(torch.float32))
     return loss, {"accuracy": acc, "spike_rate": torch.mean(out_spikes)}
+
+
+def predict(
+    params: Params,
+    images: torch.Tensor,
+    cfg: SNNConfig,
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """End-to-end inference: rate-encode (draws from ``generator``, which
+    must live on the images' device) + forward + spike-count argmax."""
+    flat = images.reshape(images.shape[0], -1)
+    spikes = coding.rate_encode(generator, flat, cfg.num_steps)
+    out_mem, out_spikes = forward(params, spikes, cfg, train=False)
+    return predict_from_traces(out_mem, out_spikes)
+
+
+def hidden_spike_rates(
+    params: Params, spikes: torch.Tensor, cfg: SNNConfig
+) -> torch.Tensor:
+    """Mean per-layer spike rates (n_layers,), which feed the event-driven
+    energy model (``energy.snn_inference_ops``).  Runs the float weights,
+    as the reference does, whatever ``cfg.quant_q115`` says."""
+    ncfg = cfg.neuron_cfg
+    B = spikes.shape[1]
+    states = [
+        neuron.init_state((B, n), device=spikes.device)
+        for n in cfg.layer_sizes[1:]
+    ]
+    rates = []
+    for x_t in spikes:
+        h, step_rates = x_t, []
+        for i in range(cfg.num_layers):
+            lp = params[f"layer{i}"]
+            cur = h @ lp["w"] + lp["b"]
+            states[i], h = neuron.neuron_step(
+                ncfg, states[i], cur,
+                beta=effective_beta(lp), threshold=lp["threshold"],
+            )
+            step_rates.append(torch.mean(h))
+        rates.append(torch.stack(step_rates))
+    return torch.mean(torch.stack(rates), dim=0)

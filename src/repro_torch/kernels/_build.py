@@ -34,12 +34,15 @@ _LL = ctypes.c_longlong
 # C signature of each source's launcher: (symbol, argtypes)
 SIGNATURES: Dict[str, Tuple[str, list]] = {
     "aer_matmul": ("aer_matmul_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "lif_fused": ("lif_fused_launch", [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
+    "q115_matmul": ("q115_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "snn_chunk": (
         "snn_chunk_launch",
         [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
          _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, ctypes.c_float,
          _P, _P, _P, _P, _P, _I, _I, _P],
     ),
+    "spike_matmul": ("spike_matmul_launch", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 

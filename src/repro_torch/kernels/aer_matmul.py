@@ -1,10 +1,12 @@
-"""Batched event-driven synaptic integration: one launch per event table.
+"""Event-driven synaptic integration: one launch per event table.
 
 ``aer_spike_matmul_batched`` computes
 
     out[b, n] = sum_e values[b, e] * weights[addrs[b, e], n]
 
-for B streams of E events each.  On a CUDA tensor it launches the
+for B streams of E events each, and ``aer_spike_matmul`` the same for one
+stream, ``out[n]``, in int32 (the reference's single-stream kernel, run
+here on the batched kernel with B = 1).  On a CUDA tensor it launches the
 hand-written Hopper kernel ``csrc/aer_matmul.cu`` (built at first use) or
 raises; on a CPU tensor it runs ``aer_spike_matmul_batched_ref``, the
 plain PyTorch version, which adds one event at a time in the kernel's
@@ -60,6 +62,16 @@ def aer_spike_matmul_batched(
     """(B, N) int32 for int16 weights, float32 for float32 weights."""
     if not addrs.is_cuda:
         return aer_spike_matmul_batched_ref(addrs, values, weights)
+    out = _launch(addrs, values, weights)
+    aer_spike_matmul_batched.launches += 1
+    return out
+
+
+aer_spike_matmul_batched.launches = 0  # kernel launches since the last reset
+
+
+def _launch(addrs: Tensor, values: Tensor, weights: Tensor) -> Tensor:
+    """Launch ``csrc/aer_matmul.cu`` on (B, E) tables; counts nothing."""
     _check(addrs, values, weights)
     dev = addrs.device
     if values.device != dev or weights.device != dev:
@@ -89,11 +101,7 @@ def aer_spike_matmul_batched(
     )
     if rc != 0:
         raise RuntimeError(f"aer_matmul kernel launch failed: CUDA error {rc}")
-    aer_spike_matmul_batched.launches += 1
     return out
-
-
-aer_spike_matmul_batched.launches = 0  # kernel launches since the last reset
 
 
 def aer_spike_matmul_batched_ref(
@@ -123,3 +131,56 @@ def aer_spike_matmul_batched_ref(
         term = v[:, e : e + 1] * w[a[:, e]]
         acc = torch.where(live[:, e : e + 1], acc + term, acc)
     return acc
+
+
+def _check_single(addrs: Tensor, values: Tensor, weights_q: Tensor) -> None:
+    if addrs.dim() != 1 or values.shape != addrs.shape:
+        raise ValueError(
+            f"addrs and values must be (E,), got {tuple(addrs.shape)} and "
+            f"{tuple(values.shape)}"
+        )
+    if weights_q.dim() != 2 or weights_q.shape[0] < 1:
+        raise ValueError(f"weights_q must be (K >= 1, N), got {tuple(weights_q.shape)}")
+    if addrs.dtype != torch.int32:
+        raise TypeError(f"addrs must be int32, got {addrs.dtype}")
+    if values.dtype not in _INT_VALUES + (torch.int64,):
+        raise TypeError(f"values must be an integer type, got {values.dtype}")
+    if weights_q.dtype != torch.int16:
+        raise TypeError(f"weights_q must be int16, got {weights_q.dtype}")
+
+
+def aer_spike_matmul(
+    addrs: Tensor,  # (E,) int32 event addresses in [0, K)
+    values: Tensor,  # (E,) integer event values, 0 on padding
+    weights_q: Tensor,  # (K, N) int16 Q1.15 codes
+) -> Tensor:
+    """(N,) int32: ``sum_e values[e] * weights_q[addrs[e], n]``, the
+    values cast to int32 first as the reference does.  Dequantize with
+    /2^15."""
+    if not addrs.is_cuda:
+        return aer_spike_matmul_ref(addrs, values, weights_q)
+    _check_single(addrs, values, weights_q)
+    out = _launch(addrs[None], values.to(torch.int32)[None], weights_q)
+    aer_spike_matmul.launches += 1
+    return out[0]
+
+
+aer_spike_matmul.launches = 0  # kernel launches since the last reset
+
+
+def aer_spike_matmul_ref(
+    addrs: Tensor, values: Tensor, weights_q: Tensor
+) -> Tensor:
+    """Plain PyTorch version of ``aer_spike_matmul`` on any device: the
+    live events' rows gathered, weighted and summed in int64, wrapped to
+    int32 (integer sums agree in any order).  A live event has a nonzero
+    value and an address in [0, K), as in the kernel; the reference
+    leaves an out-of-range address on a live event undefined."""
+    _check_single(addrs, values, weights_q)
+    K = weights_q.shape[0]
+    v = values.to(torch.int32)
+    a = addrs.long()
+    live = (v != 0) & (a >= 0) & (a < K)
+    rows = weights_q[torch.where(live, a, 0)].to(torch.int64)
+    v = torch.where(live, v, 0).to(torch.int64)
+    return (rows * v[:, None]).sum(0).to(torch.int32)

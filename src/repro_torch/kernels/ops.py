@@ -1,0 +1,62 @@
+"""Public kernel API, the counterpart of the reference's
+``repro.kernels.ops``.
+
+Every kernel wrapper is re-exported as it is: the tensor's device picks
+the path (a CUDA tensor launches the hand-written kernel or raises, a CPU
+tensor runs the plain version), so there is no ``on_tpu()`` and no
+``interpret``.  Also hosts the composed op of the inference path,
+``snn_layer_forward``: spike_matmul -> bias -> lif_fused, the paper's
+Fig. 5 pipeline (cascaded adder -> LIF neuron hardware unit).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.kernels.aer_matmul import (  # noqa: F401
+    aer_spike_matmul,
+    aer_spike_matmul_batched,
+)
+from repro_torch.kernels.lif_fused import lif_fused
+from repro_torch.kernels.q115_matmul import q115_matmul  # noqa: F401
+from repro_torch.kernels.snn_chunk import snn_chunk  # noqa: F401
+from repro_torch.kernels.spike_matmul import spike_matmul
+
+Tensor = torch.Tensor
+
+
+def snn_layer_forward(
+    spikes_T: Tensor,  # (T, B, fan_in) f32/int {0,1} input spike train
+    w: Tensor,  # (fan_in, fan_out) float weights
+    b: Tensor,  # (fan_out,) float bias
+    beta: Tensor,  # (fan_out,)
+    threshold: Tensor,  # (fan_out,)
+    *,
+    refractory_steps: int = 0,
+) -> Tensor:
+    """Full hardware-path layer: Q1.15 weights, integer cascaded-adder
+    integration of every step, fused LIF over the window.  Returns the
+    spike train (T, B, fan_out) f32; two kernel launches on the card.
+
+    This is the inference path of paper Fig. 5; training uses the float
+    graph in core/snn.py (QAT via quant.fake_quant keeps them aligned).
+    """
+    T, B, fan_in = spikes_T.shape
+    wq = quant.quantize(w, quant.Q1_15)  # (fan_in, fan_out) int16
+    bq = quant.quantize(b, quant.Q1_15)  # bias in the same Q1.15 scale
+
+    # integrate all T steps: fold time into rows for one big integration
+    spk_i8 = spikes_T.reshape(T * B, fan_in).to(torch.int8)
+    acc = spike_matmul(spk_i8, wq)  # (T*B, fan_out) int32
+    # bias added post-adder-tree in the same fixed-point scale (paper §4.3)
+    acc = acc + bq.to(torch.int32)[None, :]
+    # int32 -> f32 rounds to nearest even, then an exact power-of-2 divide,
+    # as the reference converts (|acc| may exceed 2^24)
+    currents = acc.to(torch.float32) / quant.Q1_15.scale
+    currents = currents.reshape(T, B, -1)
+
+    out_spikes, _ = lif_fused(
+        currents, beta, threshold, refractory_steps=refractory_steps
+    )
+    return out_spikes

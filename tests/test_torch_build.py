@@ -59,3 +59,12 @@ def test_library_name_follows_source_and_flags(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path("snn_chunk").name != name
     assert name.startswith("libsnn_chunk-") and name.endswith(".so")
+
+
+def test_every_kernel_source_is_built():
+    """Each ``csrc/*.cu`` has a launcher signature, so ``build_all``
+    compiles every kernel of the port (snn_chunk, aer_matmul, lif_fused,
+    spike_matmul, q115_matmul)."""
+    sources = {p.stem for p in _build.CSRC.glob("*.cu")}
+    assert sources == set(_build.SIGNATURES)
+    assert {"lif_fused", "spike_matmul", "q115_matmul"} <= sources

@@ -1,5 +1,6 @@
-"""The CUDA kernels (``snn_chunk``, ``aer_spike_matmul_batched``) against
-their plain PyTorch versions, on the card.  Imports neither JAX nor the reference, so it runs where only the
+"""The CUDA kernels (``snn_chunk``, ``aer_spike_matmul_batched``,
+``aer_spike_matmul``, ``lif_fused``, ``spike_matmul``, ``q115_matmul``)
+against their plain PyTorch versions, on the card.  Imports neither JAX nor the reference, so it runs where only the
 port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -13,6 +14,7 @@ import torch
 from repro_torch.core import neuron, snn
 from repro_torch.events import runtime
 from repro_torch.kernels import aer_matmul as aer_mod
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import snn_chunk as chunk_mod
 
 CASES = ["zero", "subtract", "refractory", "lapicque", "q115", "frozen",
@@ -161,3 +163,125 @@ def test_aer_kernel_rejects_what_it_cannot_take(cuda_device):
         fn(a[0], v[0], w)
     with pytest.raises(ValueError, match="device"):
         fn(a, v, w.cpu())
+
+
+def _launched(fn, *args, **kw):
+    """Call a kernel wrapper and check that it launched exactly once."""
+    before = fn.launches
+    out = fn(*args, **kw)
+    assert fn.launches == before + 1
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(25, 8, 512), (25, 8, 2), (7, 3, 130),
+                                   (1, 1, 1)])
+@pytest.mark.parametrize("refractory", [0, 5])
+@pytest.mark.parametrize("reset", ["zero", "subtract"])
+def test_lif_kernel_matches_plain_version_on_card(cuda_device, shape,
+                                                   refractory, reset):
+    rng = np.random.default_rng(sum(shape))
+    T, B, N = shape
+    cur = torch.from_numpy(rng.normal(0.3, 0.7, shape).astype(np.float32))
+    beta = torch.from_numpy(rng.uniform(0.5, 0.99, N).astype(np.float32))
+    thr = torch.from_numpy(rng.uniform(0.5, 1.5, N).astype(np.float32))
+    cur[0, 0, 0] = float("inf")  # propagates through the reset multiply
+    args = [x.to(cuda_device) for x in (cur, beta, thr)]
+    kw = dict(refractory_steps=refractory, reset=reset)
+    spk, u = _launched(ops.lif_fused, *args, **kw)
+    r_spk, r_u = ref.lif_fused_ref(*args, **kw)
+    assert torch.equal(spk, r_spk)
+    assert torch.equal(u.isnan(), r_u.isnan())
+    assert torch.equal(u.nan_to_num(), r_u.nan_to_num())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(200, 4096, 512), (200, 512, 2),
+                                   (37, 513, 129), (1, 1, 1)])
+def test_spike_matmul_kernel_matches_plain_version_on_card(cuda_device, shape):
+    M, K, N = shape
+    rng = np.random.default_rng(M + K)
+    spk = (rng.random((M, K)) < 0.2).astype(np.int8)
+    spk[:, : K // 2] = 0  # silent slabs are skipped
+    spk[-1, -1] = -3  # an integer spike multiplies
+    w = rng.integers(-(2**15), 2**15, (K, N)).astype(np.int16)
+    s, w = torch.from_numpy(spk).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    got = _launched(ops.spike_matmul, s, w)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.spike_matmul_ref(s, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 512, 128), (200, 4096, 512),
+                                   (33, 129, 65), (16, 4096, 8)])
+@pytest.mark.parametrize("saturate", [True, False])
+def test_q115_kernel_matches_plain_version_on_card(cuda_device, shape, saturate):
+    M, K, N = shape
+    rng = np.random.default_rng(M * N)
+    x = rng.integers(-(2**15), 2**15, (M, K)).astype(np.int16)
+    w = rng.integers(-(2**15), 2**15, (K, N)).astype(np.int16)
+    x[0], w[:, 0] = -(2**15), -(2**15)
+    x, w = torch.from_numpy(x).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    got = _launched(ops.q115_matmul, x, w, saturate=saturate)
+    plain = ref.q115_matmul_ref if saturate else ref.q115_matmul_acc_ref
+    assert torch.equal(got, plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,rate", [(4096, 512, 0.3), (512, 2, 0.5),
+                                      (257, 129, 1.0), (64, 32, 0.0)])
+def test_aer_single_kernel_matches_plain_and_dense_on_card(cuda_device, K, N, rate):
+    rng = np.random.default_rng(K + N)
+    row = (rng.random(K) < rate).astype(np.int8)
+    idx = np.nonzero(row)[0]
+    a = np.zeros(K + 5, np.int32)
+    v = np.zeros(K + 5, np.int32)
+    a[: len(idx)], v[: len(idx)] = idx, 1
+    w = torch.from_numpy(rng.integers(-(2**15), 2**15, (K, N)).astype(np.int16)).to(cuda_device)
+    a, v = torch.from_numpy(a).to(cuda_device), torch.from_numpy(v).to(cuda_device)
+    before = aer_mod.aer_spike_matmul_batched.launches
+    got = _launched(ops.aer_spike_matmul, a, v, w)
+    assert aer_mod.aer_spike_matmul_batched.launches == before
+    assert torch.equal(got, ref.aer_spike_matmul_ref(a, v, w))
+    dense = ref.spike_matmul_ref(torch.from_numpy(row[None]).to(cuda_device), w)[0]
+    assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_what_they_cannot_take(cuda_device):
+    d = cuda_device
+    cur, beta, thr = torch.zeros(3, 2, 4, device=d), torch.ones(4, device=d), torch.ones(4, device=d)
+    with pytest.raises(ValueError, match="reset"):
+        ops.lif_fused(cur, beta, thr, reset="hard")
+    with pytest.raises(TypeError, match="float32"):
+        ops.lif_fused(cur.double(), beta, thr)
+    with pytest.raises(ValueError, match="device"):
+        ops.lif_fused(cur, beta.cpu(), thr)
+    with pytest.raises(ValueError, match=r"\(4,\)"):
+        ops.lif_fused(cur, beta[:3], thr)
+    s8 = torch.zeros(4, 8, dtype=torch.int8, device=d)
+    w16 = torch.zeros(8, 3, dtype=torch.int16, device=d)
+    with pytest.raises(TypeError, match="int8"):
+        ops.spike_matmul(s8.float(), w16)
+    with pytest.raises(ValueError, match="device"):
+        ops.spike_matmul(s8, w16.cpu())
+    with pytest.raises(ValueError, match=r"\(K, N\)"):
+        ops.spike_matmul(s8, w16[:7])
+    x16 = torch.zeros(4, 8, dtype=torch.int16, device=d)
+    with pytest.raises(TypeError, match="int16"):
+        ops.q115_matmul(s8, w16)
+    with pytest.raises(ValueError, match="device"):
+        ops.q115_matmul(x16, w16.cpu())
+    with pytest.raises(ValueError, match=r"\(K, N\)"):
+        ops.q115_matmul(x16, w16[:7], saturate=False)
+    a = torch.zeros(4, dtype=torch.int32, device=d)
+    v = torch.ones(4, dtype=torch.int32, device=d)
+    with pytest.raises(TypeError, match="integer"):
+        ops.aer_spike_matmul(a, v.float(), w16)
+    with pytest.raises(TypeError, match="int16"):
+        ops.aer_spike_matmul(a, v, w16.float())
+    with pytest.raises(ValueError, match="device"):
+        ops.aer_spike_matmul(a, v, w16.cpu())
+    with pytest.raises(ValueError, match=r"\(E,\)"):
+        ops.aer_spike_matmul(a[None], v[None], w16)
