@@ -11,9 +11,10 @@ Phases, in order; any failure exits non-zero:
 3. Kernel against plain version: ``snn_chunk`` on the card at the
    collision network's full width (4096-512-2, 8 slots, Tc = 5, C = 4096)
    over rate-coded trains of the collision images, across neuron modes and
-   layouts.  Spikes, events and refractory counters must match exactly and
-   membranes within 1e-5.  Times the kernel (CUDA events) and its plain
-   version, and computes the kernel's bound from this run's inputs.
+   layouts, and at the trainer's ``evaluate`` shape (B = 32, Tc = 25).
+   Spikes, events, refractory counters and membranes must equal the plain
+   version's exactly.  Prints the launch geometry (cluster, CTAs, step
+   block), times the kernel (device time) and its plain version, and computes the kernel's bound from this run's inputs.
 4. Main path: ``SNNStreamEngine`` on the card with ``backend="fused"``
    serves 32 image requests and 16 spike-train requests with ragged
    windows.  Checks every result, checks that the kernel launched once per
@@ -150,11 +151,11 @@ def device_time_us(torch, prof):
     return out
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, only=None):
     """Mean device time of one call of ``fn`` (ms): the summed durations of
-    everything its calls ran on the card, from ``torch.profiler``, so host
-    time between launches is left out.  None when the profiler recorded no
-    device time."""
+    everything its calls ran on the card (or of the kernels whose name
+    holds ``only``), from ``torch.profiler``, so host time between launches
+    is left out.  None when the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -165,7 +166,8 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(device_time_us(torch, prof).values())
+    us = sum(t for k, t in device_time_us(torch, prof).items()
+             if only is None or only in k)
     return us / reps / 1e3 if us > 0 else None
 
 
@@ -181,7 +183,9 @@ def chunk_bound(args, events, widths):
     """Least time for one chunk on an H100 SXM: the larger of the bytes it
     must move over the memory rate and its float32 operations over the
     float32 rate, counted from this call's inputs and its measured
-    hidden-layer events."""
+    hidden-layer events.  ``l2_gather_bytes`` (information only, not in
+    the bound) is what the gather reads through L2: one W0 row per event
+    and step, as the kernel reads it."""
     import torch
 
     weights, biases, betas, thrs, u0, r0, addrs, values, counts, active = args
@@ -208,7 +212,7 @@ def chunk_bound(args, events, widths):
     flops = 2 * n_events * N[0] + 2 * hidden + 4 * Tc * B * total
     return bound_of(nbytes, flops, F32_FLOPS), {
         "events": n_events, "distinct_w0_rows": rows, "bytes": nbytes,
-        "flops": flops}
+        "l2_gather_bytes": n_events * N[0] * 4, "flops": flops}
 
 
 def phase_kernel(torch, dev, params_np, card):
@@ -268,14 +272,7 @@ def phase_kernel(torch, dev, params_np, card):
         ("time_major", params, u_rand, r_rand, "base", ones,
          {"refractory_steps": 5, "reset": "subtract"}, "time_major"),
     ]
-    worst = 0.0
-    for name, p, u0, r0, tab_name, act, kw, layout in cases:
-        tab = tables[tab_name]
-        a, v, c = tab.addrs, tab.values, tab.counts
-        if layout == "time_major":
-            a, v = a.transpose(0, 1).contiguous(), v.transpose(0, 1).contiguous()
-            c = c.T.contiguous()
-        args = (*layer_args(p), u0, r0, a, v, c, act)
+    def check(name, args, layout, kw):
         got = chunk_mod.snn_chunk(*args, layout=layout, **kw)
         ref = chunk_mod.snn_chunk_ref(*args, layout=layout, **kw)
         torch.cuda.synchronize()
@@ -291,15 +288,57 @@ def phase_kernel(torch, dev, params_np, card):
             [float((mem - r_mem).abs().max())]
             + [float((x - y).abs().max()) for x, y in zip(u_fin, r_u)]
         )
-        if not err <= 1e-5:
-            fail(f"{name}: membranes differ by {err}")
-        worst = max(worst, err)
+        if not (torch.equal(mem, r_mem) and
+                all(torch.equal(x, y) for x, y in zip(u_fin, r_u))):
+            fail(f"{name}: membranes differ from the plain version by up to {err}")
         print(f"kernel[{name}]: events {int(ev[:, 0].sum())} layer-0, "
               f"{int(ev[:, 1:].sum())} hidden | out spikes {int(spk.sum())} | "
-              f"max|d mem|={err:g} (spikes/events/refractory exact)")
+              f"spikes/events/refractory/membranes exact")
+        return ev, err
+
+    errs = []
+    for name, p, u0, r0, tab_name, act, kw, layout in cases:
+        tab = tables[tab_name]
+        a, v, c = tab.addrs, tab.values, tab.counts
+        if layout == "time_major":
+            a, v = a.transpose(0, 1).contiguous(), v.transpose(0, 1).contiguous()
+            c = c.T.contiguous()
+        args = (*layer_args(p), u0, r0, a, v, c, act)
+        ev, err = check(name, args, layout, kw)
+        errs.append(err)
         if name == "lif_zero":
             timed_args, timed_events = args, ev
-    ms = cuda_ms(lambda: chunk_mod.snn_chunk(*timed_args, layout="slot_major"))
+
+    # the trainer's evaluate shape: one chunk of T = 25 steps at B = 32
+    Tn = CONFIG.num_steps
+    px = images(TRAIN_BATCH, SEED + 7)
+    train = (rng.random((TRAIN_BATCH, Tn, sizes[0])) < px[:, None, :]).astype(
+        np.float32)
+    tab = runtime.encode_step_table(torch.from_numpy(train).to(dev), sizes[0])
+    zeros_u = [torch.zeros(TRAIN_BATCH, n, device=dev) for n in sizes[1:]]
+    zeros_r = [torch.zeros(TRAIN_BATCH, n, dtype=torch.int32, device=dev)
+               for n in sizes[1:]]
+    eval_args = (*layer_args(params), zeros_u, zeros_r, tab.addrs, tab.values,
+                 tab.counts, torch.ones(TRAIN_BATCH, device=dev))
+    eval_events, err = check(f"evaluate_B{TRAIN_BATCH}_T{Tn}", eval_args,
+                             "slot_major", {})
+    errs.append(err)
+
+    shapes = {"serve": (timed_args, timed_events, SLOTS, TC),
+              "evaluate": (eval_args, eval_events, TRAIN_BATCH, Tn)}
+    times = {}
+    for shape, (args, _, B, T) in shapes.items():
+        geo = chunk_mod.plan(sizes, T, B)
+        call = lambda: chunk_mod.snn_chunk(*args, layout="slot_major")  # noqa: E731
+        times[shape] = kernel_ms(call)
+        alone = device_ms(call, only="snn_chunk_kernel")
+        print(f"kernel geometry[{shape}]: B={B} Tc={T} cluster "
+              f"{chunk_mod.CLUSTER} x {B} slots = {geo.ctas} CTAs, "
+              f"{geo.threads} threads, columns per CTA {geo.cols}, step block "
+              f"{geo.step_block}, dynamic smem {geo.smem} B | device "
+              f"{times[shape]:.4f} ms a call, of which the kernel "
+              f"{alone or 0:.4f} ms (the rest: the wrapper's concatenations "
+              f"and casts) | on {card}")
     plain = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -307,13 +346,20 @@ def phase_kernel(torch, dev, params_np, card):
         torch.cuda.synchronize()
         plain.append((time.perf_counter() - t0) * 1e3)
     plain_ms = statistics.median(plain)
-    (bound_by, bound_ms), work = chunk_bound(
-        timed_args, timed_events, list(sizes)
-    )
-    print(f"kernel time: snn_chunk {ms:.4f} ms | plain {plain_ms:.1f} ms | "
-          f"bound {bound_ms:.5f} ms ({bound_by}; {work}) | on {card}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": worst}
+    call_ms = cuda_ms(lambda: chunk_mod.snn_chunk(*timed_args, layout="slot_major"))
+    out = {}
+    for shape, (args, events, _, _) in shapes.items():
+        (bound_by, bound_ms), work = chunk_bound(args, events, list(sizes))
+        out[shape] = {"ms": times[shape], "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        print(f"kernel time[{shape}]: snn_chunk {times[shape]:.4f} ms (device)"
+              f" | bound {bound_ms:.5f} ms ({bound_by}; {work}) | on {card}")
+    print(f"kernel time: snn_chunk per call {call_ms:.4f} ms (CUDA events) | "
+          f"plain {plain_ms:.1f} ms (host clock) | on {card}")
+    return {"ms": out["serve"]["ms"], "plain_ms": plain_ms,
+            "bound_ms": out["serve"]["bound_ms"],
+            "bound_by": out["serve"]["bound_by"], "max_abs_err": max(errs),
+            "evaluate": out["evaluate"]}
 
 
 def phase_main(torch, dev, params_np, card):
@@ -638,21 +684,24 @@ def profile_train(torch, tr, batches, card):
         print(f"profile train:   {us / 1e3:8.3f} ms  {name[:90]}")
 
 
+def kernel_ms(fn, reps=20):
+    """Device time of one call (``device_ms``); CUDA-event time per call
+    where the profiler recorded no device time."""
+    ms = device_ms(fn, reps)
+    if ms is None:
+        print("timing: the profiler recorded no device time; CUDA-event "
+              "time per call is used instead")
+        return cuda_ms(fn, reps=reps, rounds=3)
+    return ms
+
+
 def timed(kernel, plain, library=None):
     """Times of one call (ms): device time of the kernel's wrapper, its
-    plain version and its library yardstick (``device_ms``), and the
+    plain version and its library yardstick (``kernel_ms``), and the
     kernel's per-call time from CUDA events around back-to-back calls,
     which the wrapper's host time paces when it is the longer."""
-    def dev(fn, reps):
-        ms = device_ms(fn, reps)
-        if ms is None:
-            print("timing: the profiler recorded no device time; CUDA-event "
-                  "time per call is used instead")
-            return cuda_ms(fn, reps=reps, rounds=3)
-        return ms
-
-    return {"ms": dev(kernel, 20), "plain_ms": dev(plain, 5),
-            "library_ms": None if library is None else dev(library, 20),
+    return {"ms": kernel_ms(kernel, 20), "plain_ms": kernel_ms(plain, 5),
+            "library_ms": None if library is None else kernel_ms(library, 20),
             "call_ms": cuda_ms(kernel)}
 
 
@@ -842,6 +891,15 @@ def phase_ops_kernels(torch, dev, hw, card):
         if not torch.equal(ops.spike_matmul(plane, wq[i]),
                            ref.spike_matmul_ref(plane, wq[i])):
             fail(f"spike_matmul layer {i}: differs from its plain version")
+    from repro_torch.kernels import spike_matmul as smm_mod
+
+    for i, plane in enumerate(planes):
+        geo = smm_mod.plan(*plane.shape, wq[i].shape[1])
+        print(f"spike_matmul geometry[layer {i}]: {tuple(plane.shape)} x "
+              f"{tuple(wq[i].shape)}, tiles {smm_mod.TILE_M} x {smm_mod.TILE_N}"
+              f" x {smm_mod.TILE_K} (m, n, k), {geo.m_tiles} x {geo.n_tiles} "
+              f"tiles x split-K {geo.split} ({geo.slabs_per_split} of "
+              f"{geo.slabs} slabs each) = {geo.ctas} CTAs of 256 threads")
     s0, w0 = planes[0], wq[0]
     M, K = s0.shape
     N = w0.shape[1]
@@ -853,7 +911,9 @@ def phase_ops_kernels(torch, dev, hw, card):
                                    lambda: ref.spike_matmul_ref(s0, w0),
                                    lambda: torch.matmul(sd, wd)),
                            "bound_by": bound[0], "bound_ms": bound[1],
-                           "max_abs_err": 0.0, "nonzero": int((s0 != 0).sum())}
+                           "max_abs_err": 0.0, "nonzero": int((s0 != 0).sum()),
+                           "alone_ms": device_ms(lambda: ops.spike_matmul(s0, w0),
+                                                 only="spike_matmul_kernel")}
 
     # aer_spike_matmul
     addrs, values = hw["addrs"], hw["values"]
@@ -904,7 +964,9 @@ def phase_ops_kernels(torch, dev, hw, card):
               f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}) | on {card}")
     print(f"ops kernel[spike_matmul]: layer 0 {tuple(s0.shape)} x "
           f"{tuple(w0.shape)}, {out['spike_matmul']['nonzero']} nonzero "
-          f"spikes; library = torch.matmul in float64 on operands cast "
+          f"spikes; the kernel alone {out['spike_matmul']['alone_ms'] or 0:.4f}"
+          f" ms of the call's device time (the rest zeroes the split-K "
+          f"output); library = torch.matmul in float64 on operands cast "
           f"before the timed call (exact: {lib_exact}) | aer: "
           f"{out['aer_spike_matmul']['events']} events of frame 0's step "
           f"{hw['t_ev']}; library = F.embedding_bag(mode='sum') in float64 | "

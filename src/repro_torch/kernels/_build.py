@@ -40,9 +40,9 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
         "snn_chunk_launch",
         [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
          _LL, _LL, _LL, _LL, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-         _P, _P, _P, _P, _P, _I, _I, _P],
+         _P, _P, _P, _P, _P, _I, _I, _I, _P],
     ),
-    "spike_matmul": ("spike_matmul_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    "spike_matmul": ("spike_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
 }
 
 

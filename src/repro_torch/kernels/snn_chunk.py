@@ -2,8 +2,9 @@
 
 ``snn_chunk`` advances an L-layer LIF/Lapicque network ``Tc`` steps for B
 slots.  On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/snn_chunk.cu`` (built at first use) or raises; on a CPU tensor it
-runs ``snn_chunk_ref``, the plain PyTorch version.  The plain version sums
+``csrc/snn_chunk.cu`` (built at first use; one thread-block cluster per
+slot, laid out by ``plan``) or raises; on a CPU tensor it runs
+``snn_chunk_ref``, the plain PyTorch version.  The plain version sums
 in the kernel's order, sequentially over events for layer 0 and over k
 for hidden layers, so on the card the two agree value for value.
 
@@ -17,6 +18,7 @@ spike count.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import torch
@@ -25,9 +27,72 @@ Tensor = torch.Tensor
 ChunkResult = Tuple[Tensor, Tensor, Tensor, Tuple[Tensor, ...], Tuple[Tensor, ...]]
 
 MAX_LAYERS = 128
-# dynamic shared memory a block may ask for on sm_90, less the kernel's
-# static spike-count array
-SMEM_LIMIT = 232448 - 4 * MAX_LAYERS
+SMEM_LIMIT = 232448  # dynamic shared memory a block may ask for on sm_90
+CLUSTER = 8  # CTAs per slot; csrc/snn_chunk.cu: SNN_CLUSTER
+MAX_THREADS = 512  # csrc/snn_chunk.cu: SNN_MAX_THREADS
+STEP_BLOCK = 16  # most steps a block of the chunk runs at once
+EVENT_BLOCK = 512  # csrc/snn_chunk.cu: SNN_EB
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Launch geometry of one ``snn_chunk`` call (csrc/snn_chunk.cu)."""
+
+    cols: Tuple[int, ...]  # columns of each layer a CTA owns
+    step_block: int  # steps run per block of the chunk
+    threads: int
+    smem: int  # dynamic shared-memory bytes per CTA
+    ctas: int
+
+
+def smem_bytes(widths: Sequence[int], step_block: int) -> int:
+    """Shared memory of one CTA: owned state, currents, two parities of
+    spike planes and counts, the gathered hidden input, staged events."""
+    L = len(widths) - 1
+    cols = [-(-n // CLUSTER) for n in widths[1:]]
+    planes = step_block * sum(cols[:-1])
+    kh = max(widths[1:L], default=0)
+    words = (2 * sum(cols) + step_block * max(cols) + 2 * planes
+             + 2 * (L - 1) * step_block + step_block * kh + 2 * step_block
+             + 2 * step_block * EVENT_BLOCK)
+    return 4 * words
+
+
+def plan(widths: Sequence[int], steps: int, batch: int) -> Plan:
+    """Columns per CTA, step block, threads and shared memory for a
+    network of ``widths`` (K0, N_0, ..., N_{L-1}) over ``steps`` steps.
+    The cluster is ``CLUSTER`` CTAs a slot: on the H100 a cluster of 16
+    gave no steady gain at the serving chunk and ran 18-20 % slower at
+    the evaluate chunk (PERF.md, Findings).
+    The step block is as long as the thread and shared-memory limits let
+    it be, balanced over the chunk; raises when one step does not fit."""
+    widths = [int(w) for w in widths]
+    if not 1 <= len(widths) - 1 <= MAX_LAYERS:
+        raise ValueError(f"snn_chunk supports 1..{MAX_LAYERS} layers")
+    if widths[0] * widths[1] >= 2**31:
+        raise ValueError(
+            f"snn_chunk stages layer-0 row offsets as int32: a "
+            f"{widths[0]} x {widths[1]} weight is too large"
+        )
+    cols = tuple(-(-n // CLUSTER) for n in widths[1:])
+    longest = max(1, min(STEP_BLOCK, steps, MAX_THREADS // max(1, cols[0])))
+    while longest > 1 and smem_bytes(widths, longest) > SMEM_LIMIT:
+        longest -= 1
+    smem = smem_bytes(widths, longest)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"snn_chunk keeps each CTA's columns in shared memory: widths "
+            f"{widths} over a cluster of {CLUSTER} need {smem} B for one "
+            f"step, over the {SMEM_LIMIT} B a block can ask for"
+        )
+    blocks = -(-max(steps, 1) // longest)
+    step_block = -(-max(steps, 1) // blocks)
+    chains = max(step_block * cols[0], max(cols))
+    threads = min(MAX_THREADS, max(32, -(-chains // 32) * 32))
+    return Plan(cols, step_block, threads, smem_bytes(widths, step_block),
+                batch * CLUSTER)
+
+
 _ADDR_DTYPES = {torch.int16: 2, torch.int32: 4}
 _VALUE_DTYPES = {torch.int8: 1, torch.float32: 4}
 
@@ -106,14 +171,7 @@ def snn_chunk(
     if any(t.device != dev for t in tensors):
         raise ValueError("snn_chunk: every tensor must be on the device of addrs")
     total = sum(widths[1:])
-    max_width = max(widths[1:])
-    smem = 4 * (2 * total + 2 * max_width)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"snn_chunk keeps every layer's state in shared memory: "
-            f"{total} neurons need {smem} B, over the {SMEM_LIMIT} B a "
-            f"block can ask for"
-        )
+    geo = plan(widths, Tc, B)
 
     f32 = torch.float32
     ws = [w.to(f32).contiguous() for w in weights]
@@ -132,7 +190,6 @@ def snn_chunk(
     events = torch.empty((Tc, L, B), dtype=f32, device=dev)
     u_fin = torch.empty((B, total), dtype=f32, device=dev)
     r_fin = torch.empty((B, total), dtype=torch.int32, device=dev)
-    threads = min(512, max(32, -(-max_width // 32) * 32))
 
     from repro_torch.kernels import _build
 
@@ -149,7 +206,8 @@ def snn_chunk(
         B, Tc, C, int(refractory_steps), int(reset == "subtract"),
         int(kind == "lapicque"), float(lapicque_gain),
         mem.data_ptr(), spk.data_ptr(), events.data_ptr(),
-        u_fin.data_ptr(), r_fin.data_ptr(), threads, smem,
+        u_fin.data_ptr(), r_fin.data_ptr(), geo.step_block, geo.threads,
+        geo.smem,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -8,16 +8,24 @@
 as the reference's ``repro.kernels.ref.spike_matmul_ref`` does (an
 integer product: a spike other than 0 or 1 multiplies).  On a CUDA tensor
 it launches the hand-written Hopper kernel ``csrc/spike_matmul.cu``
-(built at first use) or raises; on a CPU tensor it runs
-``spike_matmul_ref``, the plain PyTorch version.  Integer sums wrap as
-int32 in any order, so the two agree bit for bit.
+(built at first use; int8 tensor cores, the weight split into two int8
+halves) or raises; on a CPU tensor it runs ``spike_matmul_ref``, the
+plain PyTorch version.  Integer sums wrap as int32 in any order, so the
+two agree bit for bit.  ``plan`` is the kernel's launch geometry.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 Tensor = torch.Tensor
+# the kernel's tile (csrc/spike_matmul.cu: SMM_BM, SMM_BN, SMM_BK) and
+# the CTAs it aims to keep in flight: one per SM of an H100
+TILE_M, TILE_N, TILE_K = 128, 64, 64
+SMS = 132
+GRID_YZ_MAX = 65535
 # elements of the (M, k-chunk, N) int32 product a plain version holds at
 # once: 128 MiB, so the (200, 4096) x (4096, 512) product runs in slices
 CHUNK_ELEMS = 2**25
@@ -39,6 +47,37 @@ def k_chunk(M: int, N: int) -> int:
     return max(1, CHUNK_ELEMS // max(1, M * N))
 
 
+@dataclass(frozen=True)
+class Plan:
+    """Launch geometry of one ``spike_matmul`` call."""
+
+    m_tiles: int
+    n_tiles: int
+    slabs: int  # K slabs of TILE_K
+    split: int  # CTAs along K (split-K); > 1 adds partial tiles atomically
+    slabs_per_split: int
+
+    @property
+    def ctas(self) -> int:
+        return self.m_tiles * self.n_tiles * self.split
+
+
+def plan(M: int, K: int, N: int) -> Plan:
+    """Tiles and split-K for (M, K) x (K, N): enough K splits that the
+    grid holds about ``SMS`` CTAs, never an empty split; raises where the
+    grid cannot hold the shape."""
+    if min(M, K, N) < 0 or max(M, K, N) > 2**31 - 1:
+        raise ValueError(f"spike_matmul: M={M}, K={K}, N={N} out of range")
+    m_tiles, n_tiles = -(-M // TILE_M), -(-N // TILE_N)
+    if m_tiles > GRID_YZ_MAX:
+        raise ValueError(f"spike_matmul: M={M} exceeds the grid")
+    slabs = -(-K // TILE_K)
+    split = max(1, min(slabs, SMS // max(1, m_tiles * n_tiles)))
+    per = -(-slabs // split) if slabs else 0
+    split = -(-slabs // per) if slabs else 1
+    return Plan(m_tiles, n_tiles, slabs, split, per)
+
+
 def spike_matmul(spikes: Tensor, weights_q: Tensor) -> Tensor:
     """int8 (M, K) x int16 (K, N) -> int32 (M, N); dequantize with /2^15."""
     if not spikes.is_cuda:
@@ -49,16 +88,17 @@ def spike_matmul(spikes: Tensor, weights_q: Tensor) -> Tensor:
         raise ValueError("spike_matmul: every tensor must be on the device of spikes")
     M, K = spikes.shape
     N = weights_q.shape[1]
-    if -(-M // 16) > 65535 or max(M, K, N) > 2**31 - 1:
-        raise ValueError(f"spike_matmul: M={M}, K={K}, N={N} exceed the grid")
-    out = torch.empty((M, N), dtype=torch.int32, device=dev)
+    geo = plan(M, K, N)
+    alloc = torch.zeros if geo.split > 1 else torch.empty
+    out = alloc((M, N), dtype=torch.int32, device=dev)
 
     from repro_torch.kernels import _build
 
     launch = _build.load("spike_matmul")
     rc = launch(
         spikes.contiguous().data_ptr(), weights_q.contiguous().data_ptr(),
-        out.data_ptr(), M, K, N, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), M, K, N, geo.split,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"spike_matmul kernel launch failed: CUDA error {rc}")

@@ -102,15 +102,79 @@ def test_kernel_rejects_what_it_cannot_take(cuda_device):
         chunk_mod.snn_chunk(*args, a.to(torch.int64), v, c, act, layout=layout)
     with pytest.raises(ValueError, match="device"):
         chunk_mod.snn_chunk(*args, a, v, c, act.cpu(), layout=layout)
-    big = [torch.zeros(64, 60000, device=cuda_device)]
+    # 75,000 columns a CTA: their state alone exceeds a block's shared memory
+    wide = 600000
+    big = [torch.zeros(64, wide, device=cuda_device)]
     with pytest.raises(ValueError, match="shared memory"):
-        chunk_mod.snn_chunk(big, [torch.zeros(60000, device=cuda_device)] * 1,
-                            [torch.zeros(60000, device=cuda_device)],
-                            [torch.zeros(60000, device=cuda_device)],
-                            [torch.zeros(6, 60000, device=cuda_device)],
-                            [torch.zeros(6, 60000, dtype=torch.int32,
+        chunk_mod.snn_chunk(big, [torch.zeros(wide, device=cuda_device)] * 1,
+                            [torch.zeros(wide, device=cuda_device)],
+                            [torch.zeros(wide, device=cuda_device)],
+                            [torch.zeros(6, wide, device=cuda_device)],
+                            [torch.zeros(6, wide, dtype=torch.int32,
                                          device=cuda_device)],
                             (a % 64), v, c, act, layout=layout)
+
+
+def _chunk_args(sizes, B, Tc, dev, *, layout, int32_float=False, seed=0):
+    """Seeded inputs of ``snn_chunk`` at collision-like rates: a frozen
+    slot (when B > 1), a silent step (when Tc > 2), random state."""
+    rng = np.random.default_rng(seed)
+    ws = [torch.from_numpy(rng.uniform(-1, 1, (k, n)).astype(np.float32)
+                           / np.sqrt(k)).to(dev)
+          for k, n in zip(sizes[:-1], sizes[1:])]
+
+    def vec(n, lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, n).astype(np.float32)).to(dev)
+
+    biases = [vec(n, -0.05, 0.05) for n in sizes[1:]]
+    betas = [vec(n, 0.8, 0.95) for n in sizes[1:]]
+    thrs = [vec(n, 0.1, 0.3) for n in sizes[1:]]
+    u0 = [torch.from_numpy(rng.normal(0, 0.2, (B, n)).astype(np.float32)).to(dev)
+          for n in sizes[1:]]
+    r0 = [torch.from_numpy(rng.integers(0, 3, (B, n)).astype(np.int32)).to(dev)
+          for n in sizes[1:]]
+    x = (rng.random((B, Tc, sizes[0])) < 0.3).astype(np.float32)
+    if Tc > 2:
+        x[:, 2] = 0.0  # an all-silent step
+    a, v, c = runtime.encode_step_table(torch.from_numpy(x).to(dev), sizes[0])
+    if int32_float:
+        a, v = a.to(torch.int32), v.to(torch.float32)
+    if layout == "time_major":
+        a, v, c = (a.transpose(0, 1).contiguous(),
+                   v.transpose(0, 1).contiguous(), c.T.contiguous())
+    act = torch.ones(B, device=dev)
+    if B > 1:
+        act[B // 2] = 0  # a frozen slot
+    return (ws, biases, betas, thrs, u0, r0, a, v, c, act)
+
+
+CHUNK_SHAPES = [
+    # sizes, B, Tc, layout, int32 addresses with float32 values
+    ((4096, 512, 2), 1, 1, "slot_major", False),
+    ((4096, 512, 2), 8, 5, "slot_major", False),
+    ((4096, 512, 2), 9, 5, "time_major", True),
+    ((4096, 512, 2), 32, 25, "slot_major", False),
+    ((4096, 500, 2), 8, 5, "time_major", False),
+    ((256, 300, 40, 2), 9, 5, "slot_major", True),
+    ((256, 300, 40, 2), 8, 25, "time_major", False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CHUNK_SHAPES)
+@pytest.mark.parametrize("kw", [{}, {"refractory_steps": 3, "reset": "subtract"}])
+def test_kernel_matches_plain_version_at_cluster_shapes(cuda_device, shape, kw):
+    sizes, B, Tc, layout, int32_float = shape
+    args = _chunk_args(sizes, B, Tc, cuda_device, layout=layout,
+                       int32_float=int32_float, seed=B * Tc)
+    got = _launched(chunk_mod.snn_chunk, *args, layout=layout, **kw)
+    exp = chunk_mod.snn_chunk_ref(*args, layout=layout, **kw)
+    torch.cuda.synchronize()
+    assert got[2][:, 0].sum() > 0 and got[2][:, 1].sum() > 0
+    for x, y in zip(got[:3], exp[:3]):
+        assert torch.equal(x, y)
+    for x, y in zip(got[3] + got[4], exp[3] + exp[4]):
+        assert torch.equal(x, y)
 
 
 def _aer_inputs(B, E, K, N, rate, int16, dev, seed=0):
@@ -210,6 +274,41 @@ def test_spike_matmul_kernel_matches_plain_version_on_card(cuda_device, shape):
     got = _launched(ops.spike_matmul, s, w)
     assert got.dtype == torch.int32
     assert torch.equal(got, ref.spike_matmul_ref(s, w))
+
+
+def _spikes_weights(kind, M, K, N, dev):
+    rng = np.random.default_rng(M * 7 + K + N)
+    spk = (rng.random((M, K)) < 0.3).astype(np.int8)
+    w = rng.integers(-(2**15), 2**15, (K, N)).astype(np.int16)
+    if kind == "overflow":  # 4096 x 127 x -32768 passes -2^31: must wrap
+        spk[:], w[:] = 127, -(2**15)
+    elif kind == "extremes":
+        spk[rng.random((M, K)) < 0.1] = -128
+        w[rng.random((K, N)) < 0.2] = -(2**15)
+        w[rng.random((K, N)) < 0.2] = 2**15 - 1
+    elif kind == "silent":
+        spk[:] = 0
+    return (torch.from_numpy(spk).to(dev), torch.from_numpy(w).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("overflow", (200, 4096, 512)), ("overflow", (37, 4096, 2)),
+    ("extremes", (200, 4096, 512)), ("extremes", (37, 100, 129)),
+    ("extremes", (1, 513, 2)), ("extremes", (200, 4095, 129)),
+    ("random", (200, 512, 2)), ("random", (37, 4096, 512)),
+    ("random", (1, 4096, 512)), ("random", (129, 77, 64)),
+    ("silent", (200, 4096, 512)), ("silent", (37, 513, 129)),
+])
+def test_spike_matmul_kernel_edges_on_card(cuda_device, kind, shape):
+    s, w = _spikes_weights(kind, *shape, cuda_device)
+    got = _launched(ops.spike_matmul, s, w)
+    exp = ref.spike_matmul_ref(s, w)
+    assert torch.equal(got, exp)
+    if kind == "overflow":
+        assert int(exp[0, 0]) == (4096 * 127 * -(2**15) + 2**31) % 2**32 - 2**31
+    if kind == "silent":
+        assert not got.any()
 
 
 @pytest.mark.cuda
