@@ -23,15 +23,20 @@ Phases, in order; any failure exits non-zero:
 5. Kernel against plain version: ``aer_spike_matmul_batched`` on the card
    at the training shapes (B = 32; layer 0, K = 4096, N = 512, on a dense
    early DVS step and a sparse late one; layer 1, K = 512, N = 2), float32
-   with max abs difference 0 and int16 bit-exact.  Times the kernel, its
-   plain version and ``F.embedding_bag`` (the library yardstick), and
-   computes the bound from this run's events.
+   with max abs difference 0 and int16 bit-exact, and ``aer_spike_matmul``
+   (one stream of the dense step, int16).  Prints the batch's live events
+   a step, and each case's launch plan and variant (``merged``,
+   ``narrow``, ``split``); times the kernel (device time a call, and its
+   own kernel alone), its plain version and ``F.embedding_bag`` (the
+   library yardstick) in every case, and computes the bound from this
+   run's events.
 6. Training path: ``EventTrainer`` at 4096-512-2, T = 25, B = 32, signed
    DVS, every layer's forward through the kernel, then one ``evaluate``
    through ``snn_chunk``.  Checks finite losses, the launch counts
    (steps x T x L aer launches), one step bit-equal in loss and gradients
    to the same step on the plain version, and two seeded runs
-   bit-identical; prints ms/step and a ``torch.profiler`` breakdown.
+   bit-identical; prints ms/step and a ``torch.profiler`` breakdown with
+   the aer kernel's device time split by variant (layer 0, layer 1).
 7. Hardware path (the public kernel API, ``repro_torch.kernels.ops``):
    ``ops.snn_layer_forward`` layer by layer at 4096-512-2, T = 25, B = 8
    over deterministically rate-coded collision images, with refractory 0
@@ -48,8 +53,9 @@ Phases, in order; any failure exits non-zero:
    ``q115_matmul`` (saturate True and False, both shapes), all bit-exact;
    times each kernel, its plain version and its library yardstick where
    one PyTorch call computes the same function, and computes its bound.
-9. Prints the kernel table as one JSON line, then ``{"ok": true, ...}`` as
-   the last line.
+9. Prints the kernel table as one JSON line (the aer row also carries
+   the sparse and layer-1 times and every phase-5 case), then
+   ``{"ok": true, ...}`` as the last line.
 
 There is no CPU fallback: without a CUDA device the script exits 2.
 """
@@ -497,13 +503,15 @@ def aer_bound(addrs, values, weights):
 
 def phase_aer_kernel(torch, dev, params_np, card):
     """Phase 5: the aer kernel against its plain version at the training
-    shapes, over a DVS batch rendered on the card."""
+    shapes, over a DVS batch rendered on the card, and the single stream
+    (``aer_spike_matmul``, int16) on one stream of the dense step."""
     import numpy as np
     import torch.nn.functional as F
 
     from repro_torch.core import quant
     from repro_torch.events import runtime
     from repro_torch.kernels import aer_matmul as aer_mod
+    from repro_torch.kernels import ops
     from repro_torch.sparse_train.trainer import dvs_batches
 
     tcfg = train_config()
@@ -519,6 +527,37 @@ def phase_aer_kernel(torch, dev, params_np, card):
         "layer1": (hidden, w1),
     }
     fn, ref_fn = aer_mod.aer_spike_matmul_batched, aer_mod.aer_spike_matmul_batched_ref
+    live = (planes != 0).sum((0, 2)).tolist()  # layer-0 events a step
+    print(f"aer[batch]: live layer-0 events a step (B = {TRAIN_BATCH}, T = "
+          f"{tcfg.num_steps}): {live}")
+
+    def plain_ms(call):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def record(name, call, plain, library, addrs, values, w, err):
+        geo = aer_mod.plan(*addrs.shape, *w.shape, w.dtype == torch.int16)
+        (bound_by, bound_ms), work = aer_bound(addrs, values, w)
+        rec = {"ms": kernel_ms(call), "call_ms": cuda_ms(call),
+               "alone_ms": device_ms(call, only=f"aer_{geo.variant}_kernel"),
+               "library_ms": kernel_ms(library),
+               "plain_ms": plain_ms(plain),  # host clock: it syncs once a call
+               "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+               "variant": geo.variant}
+        print(f"aer[{name}]: B={addrs.shape[0]} E={addrs.shape[1]} "
+              f"K={w.shape[0]} N={w.shape[1]} {w.dtype} | plan: {geo} | "
+              f"kernel {rec['ms']:.4f} ms device a call (aer_{geo.variant}_kernel "
+              f"alone {rec['alone_ms'] or 0:.4f} ms; per call {rec['call_ms']:.4f}"
+              f" ms) | plain {rec['plain_ms']:.1f} ms (host clock) | "
+              f"embedding_bag {rec['library_ms']:.4f} ms | bound "
+              f"{bound_ms:.5f} ms ({bound_by}; {work}) | on {card}")
+        return rec
+
     out = {}
     for name, (plane, w) in cases.items():
         addrs, values, _ = runtime.step_events(plane, plane.shape[-1])
@@ -533,26 +572,28 @@ def phase_aer_kernel(torch, dev, params_np, card):
                  f"by {err}")
         if not torch.equal(got_q, ref_q):
             fail(f"aer {name}: int16 kernel differs from its plain version")
-        ms = cuda_ms(lambda: fn(addrs, values, w))
-        lib_ms = cuda_ms(lambda: F.embedding_bag(
-            addrs, w, per_sample_weights=values, mode="sum"))
         lib = F.embedding_bag(addrs, w, per_sample_weights=values, mode="sum")
-        plain = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            ref_fn(addrs, values, w)
-            torch.cuda.synchronize()
-            plain.append((time.perf_counter() - t0) * 1e3)
-        (bound_by, bound_ms), work = aer_bound(addrs, values, w)
-        out[name] = {"ms": ms, "plain_ms": statistics.median(plain),
-                     "library_ms": lib_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "max_abs_err": err}
-        print(f"aer[{name}]: B={addrs.shape[0]} E={addrs.shape[1]} "
-              f"K={w.shape[0]} N={w.shape[1]} | f32 max|d|={err:g}, int16 "
-              f"exact | kernel {ms:.4f} ms | plain {out[name]['plain_ms']:.1f}"
-              f" ms | embedding_bag {lib_ms:.4f} ms (max|d| "
-              f"{float((lib - got).abs().max()):.2g}, not gated) | bound "
-              f"{bound_ms:.5f} ms ({bound_by}; {work}) | on {card}")
+        out[name] = record(
+            name, lambda: fn(addrs, values, w), lambda: ref_fn(addrs, values, w),
+            lambda: F.embedding_bag(addrs, w, per_sample_weights=values,
+                                    mode="sum"),
+            addrs, values, w, err)
+        print(f"aer[{name}]: int16 ({aer_mod.plan(*addrs.shape, *w.shape, True).variant}"
+              f") exact | embedding_bag float32 max|d| "
+              f"{float((lib - got).abs().max()):.2g} (another sum order; not gated)")
+
+    # the single stream: stream 0 of the dense step, int16 codes
+    addrs, values, _ = runtime.step_events(planes[:1, 0], planes.shape[-1])
+    a1, v1, wq0 = addrs[0], values[0].to(torch.int8), quant.quantize(w0)
+    got = ops.aer_spike_matmul(a1, v1, wq0)
+    if not torch.equal(got, aer_mod.aer_spike_matmul_ref(a1, v1, wq0)):
+        fail("aer single_int16: kernel differs from its plain version")
+    vd, wd = v1.double()[None], wq0.double()
+    out["single_int16"] = record(
+        "single_int16", lambda: ops.aer_spike_matmul(a1, v1, wq0),
+        lambda: aer_mod.aer_spike_matmul_ref(a1, v1, wq0),
+        lambda: F.embedding_bag(a1[None], wd, per_sample_weights=vd, mode="sum"),
+        a1[None], v1[None], wq0, 0.0)
     return out
 
 
@@ -676,10 +717,16 @@ def profile_train(torch, tr, batches, card):
         print("profile train: the profiler recorded no device time: not measured")
         return
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
-    aer_ms = sum(us for k, us in device_us.items() if "aer_matmul" in k) / 1e3
+    # the aer kernel by variant: merged = layer 0, narrow = layer 1
+    by_variant = {v: sum(us for k, us in device_us.items()
+                         if f"aer_{v}_kernel" in k) / 1e3
+                  for v in ("merged", "rows", "narrow", "split")}
+    aer_ms = sum(by_variant.values())
+    split = ", ".join(f"{v} {ms:.3f} ms" for v, ms in by_variant.items() if ms)
     print(f"profile train: traced wall {wall_ms:.1f} ms over 2 steps | device "
           f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) | aer kernel "
-          f"{aer_ms:.2f} ms ({aer_ms / busy_ms:.1%} of busy) | on {card}")
+          f"{aer_ms:.3f} ms ({aer_ms / busy_ms:.1%} of busy; {split}; "
+          f"{aer_ms / 2:.3f} ms a step) | on {card}")
     for name, us in top:
         print(f"profile train:   {us / 1e3:8.3f} ms  {name[:90]}")
 
@@ -1050,6 +1097,9 @@ def main() -> int:
 
     # 9. results
     dense = aer["layer0_dense_t0"]
+    aer_cases = {name: {k: c[k] for k in ("variant", "ms", "alone_ms",
+                                          "bound_ms", "library_ms")}
+                 for name, c in aer.items()}
     print(json.dumps({"kernels": [{
         "name": "snn_chunk",
         "route": "cuda",
@@ -1074,6 +1124,9 @@ def main() -> int:
         "bound_ms": dense["bound_ms"],
         "bound_by": dense["bound_by"],
         "library_ms": dense["library_ms"],
+        "ms_sparse": aer["layer0_sparse_t24"]["ms"],
+        "ms_layer1": aer["layer1"]["ms"],
+        "cases": aer_cases,
     }] + ops_rows(hw, ops_k)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,10 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # C signature of each source's launcher: (symbol, argtypes)
 SIGNATURES: Dict[str, Tuple[str, list]] = {
-    "aer_matmul": ("aer_matmul_launch", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "aer_matmul": (
+        "aer_matmul_launch",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    ),
     "lif_fused": ("lif_fused_launch", [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
     "q115_matmul": ("q115_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "snn_chunk": (

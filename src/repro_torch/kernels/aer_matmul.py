@@ -6,11 +6,12 @@
 
 for B streams of E events each, and ``aer_spike_matmul`` the same for one
 stream, ``out[n]``, in int32 (the reference's single-stream kernel, run
-here on the batched kernel with B = 1).  On a CUDA tensor it launches the
-hand-written Hopper kernel ``csrc/aer_matmul.cu`` (built at first use) or
-raises; on a CPU tensor it runs ``aer_spike_matmul_batched_ref``, the
-plain PyTorch version, which adds one event at a time in the kernel's
-order, so on the card the two agree value for value.
+here on the batched kernel with B = 1, where ``plan`` splits E across
+CTAs).  On a CUDA tensor it launches the hand-written Hopper kernel
+``csrc/aer_matmul.cu`` (built at first use) or raises; on a CPU tensor it
+runs ``aer_spike_matmul_batched_ref``, the plain PyTorch version, which
+adds one event at a time in the kernel's order, so on the card the two
+agree value for value.
 
 Contracts, those of the reference's ``repro.kernels.aer_matmul``:
 
@@ -21,14 +22,120 @@ Contracts, those of the reference's ``repro.kernels.aer_matmul``:
 
 An event whose value is 0 (padding) or whose address lies outside
 [0, K) contributes nothing, and no row outside [0, K) is ever read.
+
+``plan`` is the kernel's launch geometry: which of its four variants runs
+(for float32 ``merged`` at N >= 32, ``narrow`` at N < 32, ``rows`` where
+the merged CTA's shared memory does not fit; ``split`` for int16 weights,
+E split across CTAs), the streams, columns and events a CTA takes, and
+its shared memory.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 Tensor = torch.Tensor
 _INT_VALUES = (torch.int8, torch.int16, torch.int32)
+# the launcher's variant codes (csrc/aer_matmul.cu: AER_ROWS, ...)
+VARIANTS = {"rows": 0, "narrow": 1, "split": 2, "merged": 3}
+SMS = 132  # SMs of an H100
+SPLIT_CTAS = 4 * SMS  # the int16 split aims at about four CTAs an SM
+GRID_YZ_MAX = 65535
+INT_MAX = 2**31 - 1
+# dynamic shared memory a CTA may take: 227 KB less 1 KB for the static
+# (csrc/aer_matmul.cu: AER_SMEM_MAX)
+SMEM_LIMIT = 231424
+TILE_ROWS = 256  # W rows a tile of the merged walk (AER_TILE_ROWS)
+MERGE_MAX = 4  # streams a merged CTA (AER_MERGE_MAX)
+GROUP = 128  # threads a ring, and a stream of a merged CTA (AER_GROUP)
+LEAD = 2  # E-blocks of rows in flight in a ring (AER_LEAD)
+NARROW_N = 32  # float32 layers narrower than this take the narrow variant
+
+
+@dataclass(frozen=True)
+class Plan:
+    """Launch geometry of one ``aer_spike_matmul_batched`` call: a grid of
+    (ceil(B / streams), slices, splits) CTAs of ``threads`` threads
+    (``GROUP`` a stream), each adding ``cols`` columns of ``streams``
+    streams over ``e_chunk`` events."""
+
+    variant: str
+    cols: int
+    threads: int
+    streams: int
+    e_chunk: int
+    slices: int
+    splits: int
+    ctas: int
+    smem: int
+
+
+def ring_bytes(threads: int, cols: int, wsize: int) -> int:
+    """Shared memory of a ring of ``threads`` events a block: LEAD + 1
+    slots of staged rows (each padded to 16 bytes) and 2 * LEAD + 1 slots
+    of events (int32 address, 4-byte value); csrc: ring_bytes."""
+    pitch = -(-cols * wsize // 16) * 16
+    return (LEAD + 1) * threads * pitch + (2 * LEAD + 1) * threads * 8
+
+
+def walk_bytes(streams: int, K: int, cols: int) -> int:
+    """The merged walk's (streams, K) plane and two W tiles (float32)."""
+    kp = -(-K // TILE_ROWS) * TILE_ROWS
+    return streams * kp * 4 + 2 * TILE_ROWS * -(-cols * 4 // 16) * 16
+
+
+@functools.lru_cache(maxsize=256)  # the trainer calls it 50 times a step
+def plan(B: int, E: int, K: int, N: int, int16: bool) -> Plan:
+    """The kernel's variant and geometry for B streams of E events into a
+    (K, N) weight; raises where the grid cannot hold the shape.  A CTA
+    takes 32 columns (all N below 32) and ``GROUP`` threads a stream.
+
+    float32 keeps each (b, n) sum in one thread, e ascending:
+
+    - ``merged`` at N >= ``NARROW_N`` when up to ``MERGE_MAX`` streams'
+      (K,) planes fit: the CTA walks W once for its streams on dense,
+      ascending input, else runs one ring a stream;
+    - ``narrow`` below ``NARROW_N`` columns: the CTA ring over all N;
+    - ``rows``, the CTA ring, when not even one plane fits.
+
+    int16 sums wrap, so ``split`` (the CTA ring) cuts E into chunks until
+    the grid holds about ``SPLIT_CTAS`` CTAs, never an empty chunk."""
+    if min(B, E, N) < 0 or K < 1 or max(B, E, K, N) > INT_MAX:
+        raise ValueError(
+            f"aer_spike_matmul_batched: B={B}, E={E}, K={K}, N={N} out of range"
+        )
+    wsize = 2 if int16 else 4
+    cols, streams, splits = min(32, max(N, 1)), 1, 1
+    if int16:
+        variant = "split"
+    elif N < NARROW_N:
+        variant = "narrow"
+    else:
+        fits = [s for s in range(min(MERGE_MAX, B), 0, -1)
+                if walk_bytes(s, K, cols) <= SMEM_LIMIT]
+        variant = "merged" if fits else "rows"
+        streams = fits[0] if fits else 1
+    threads = GROUP * streams
+    slices = -(-N // cols)
+    if slices > GRID_YZ_MAX:
+        raise ValueError(f"aer_spike_matmul_batched: N={N} exceeds the grid")
+    blocks = -(-E // threads)
+    if int16 and blocks:
+        splits = max(1, min(blocks, -(-SPLIT_CTAS // max(1, B * slices))))
+        splits = -(-blocks // -(-blocks // splits))  # no empty chunk
+    if variant == "merged":  # each CTA reads all E events of its streams
+        e_chunk = E
+        smem = max(walk_bytes(streams, K, cols),
+                   streams * ring_bytes(GROUP, cols, wsize))
+    else:
+        e_chunk = -(-blocks // splits) * threads
+        smem = ring_bytes(threads, cols, wsize)
+    ctas = -(-B // streams) * slices * splits
+    return Plan(variant, cols, threads, streams, e_chunk, slices, splits, ctas,
+                smem)
 
 
 def _check(addrs: Tensor, values: Tensor, weights: Tensor) -> None:
@@ -80,24 +187,24 @@ def _launch(addrs: Tensor, values: Tensor, weights: Tensor) -> Tensor:
         )
     B, E = addrs.shape
     K, N = weights.shape
-    if B > 2**31 - 1 or E > 2**31 - 1 or -(-N // 128) > 65535:
-        raise ValueError(
-            f"aer_spike_matmul_batched: B={B}, E={E}, N={N} exceed the grid"
-        )
     int16 = weights.dtype == torch.int16
+    geo = plan(B, E, K, N, int16)
     acc = torch.int32 if int16 else torch.float32
     addrs = addrs.contiguous()
     values = values.to(acc).contiguous()
     weights = weights.contiguous()
-    out = torch.empty((B, N), dtype=acc, device=dev)
+    # split partials meet by atomicAdd: they need a zeroed output
+    alloc = torch.zeros if geo.splits > 1 else torch.empty
+    out = alloc((B, N), dtype=acc, device=dev)
 
     from repro_torch.kernels import _build
 
     launch = _build.load("aer_matmul")
     rc = launch(
         addrs.data_ptr(), values.data_ptr(), weights.data_ptr(),
-        out.data_ptr(), B, E, K, N, int(int16),
-        torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), B, E, K, N, int(int16), VARIANTS[geo.variant],
+        geo.cols, geo.threads, geo.streams, geo.e_chunk, geo.slices,
+        geo.splits, geo.smem, torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"aer_matmul kernel launch failed: CUDA error {rc}")

@@ -1,6 +1,7 @@
-"""Launch planning of the port's two redesigned kernels, on the CPU: the
-tiles and split-K of ``spike_matmul`` and the columns, step block and
-shared memory of ``snn_chunk``, at the collision shapes and at the
+"""Launch planning of the port's redesigned kernels, on the CPU: the
+tiles and split-K of ``spike_matmul``, the columns, step block and
+shared memory of ``snn_chunk``, and the variant, columns, E-split and
+shared memory of the aer kernel, at the collision shapes and at the
 edges; and the int8 weight split the ``spike_matmul`` kernel runs on its
 tensor cores (w = 256 * hi + lo), held in numpy against the reference's
 ``spike_matmul_ref`` (JAX) and the port's plain version.
@@ -15,6 +16,8 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ref as ref_kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels import aer_matmul as aer_mod
 from repro_torch.kernels import snn_chunk as chunk_mod
 from repro_torch.kernels import spike_matmul as smm_mod
 
@@ -119,6 +122,131 @@ def test_snn_chunk_step_block_shrinks_to_fit_shared_memory():
 def test_snn_chunk_plan_rejects_what_cannot_launch(widths, match):
     with pytest.raises(ValueError, match=match):
         chunk_mod.plan(widths, 5, 8)
+
+
+# ---------------------------------------------------------------- aer plan
+@pytest.mark.parametrize("shape,want", [
+    # (B, E, K, N, int16): (variant, cols, threads, streams, e_chunk,
+    # slices, splits, ctas, smem)
+    ((32, 4096, 4096, 512, False),  # training layer 0
+     ("merged", 32, 512, 4, 4096, 16, 1, 128, 217088)),
+    ((32, 512, 512, 2, False),  # training layer 1
+     ("narrow", 2, 128, 1, 512, 1, 1, 32, 11264)),
+    ((1, 4096, 4096, 512, True),  # aer_spike_matmul, hardware path
+     ("split", 32, 128, 1, 128, 16, 32, 512, 29696)),
+    ((32, 4096, 4096, 512, True), ("split", 32, 128, 1, 2048, 16, 2, 1024, 29696)),
+    ((32, 512, 512, 2, True), ("split", 2, 128, 1, 128, 1, 4, 128, 11264)),
+    ((4, 0, 3, 5, False), ("narrow", 5, 128, 1, 0, 1, 1, 4, 17408)),  # E = 0
+    ((4, 0, 3, 5, True), ("split", 5, 128, 1, 0, 1, 1, 4, 11264)),
+    ((3, 100, 7, 1, False), ("narrow", 1, 128, 1, 128, 1, 1, 3, 11264)),  # N = 1
+    ((3, 100, 1, 31, False), ("narrow", 31, 128, 1, 128, 1, 1, 3, 54272)),  # K = 1
+    ((3, 100, 9, 32, False), ("merged", 32, 384, 3, 100, 1, 1, 1, 162816)),
+    ((2, 70, 9, 129, False), ("merged", 32, 256, 2, 70, 5, 1, 5, 108544)),
+    ((5, 300, 77, 200, False), ("merged", 32, 512, 4, 300, 7, 1, 14, 217088)),
+    # fewer streams a CTA where four planes do not fit; the CTA ring where
+    # not even one does
+    ((8, 10, 20000, 64, False), ("merged", 32, 256, 2, 10, 2, 1, 8, 227328)),
+    ((1, 10, 60000, 64, False), ("rows", 32, 128, 1, 128, 2, 1, 2, 54272)),
+    ((1, 4101, 4096, 129, True), ("split", 32, 128, 1, 128, 5, 33, 165, 29696)),
+    ((70000, 10, 3, 1, False), ("narrow", 1, 128, 1, 128, 1, 1, 70000, 11264)),
+    ((2**31 - 1, 1, 1, 64, True),
+     ("split", 32, 128, 1, 128, 2, 1, 2 * (2**31 - 1), 29696)),
+])
+def test_aer_plan_at_known_shapes(shape, want):
+    geo = aer_mod.plan(*shape)
+    got = (geo.variant, geo.cols, geo.threads, geo.streams, geo.e_chunk,
+           geo.slices, geo.splits, geo.ctas, geo.smem)
+    assert got == want
+
+
+@pytest.mark.parametrize("B", [1, 3, 32, 200])
+@pytest.mark.parametrize("E", [1, 65, 4096, 9999])
+@pytest.mark.parametrize("K", [1, 4096, 20000, 60000])
+@pytest.mark.parametrize("N", [1, 2, 31, 32, 33, 512])
+@pytest.mark.parametrize("int16", [False, True])
+def test_aer_plan_covers_the_shape_as_the_launcher_checks(B, E, K, N, int16):
+    geo = aer_mod.plan(B, E, K, N, int16)
+    wsize = 2 if int16 else 4
+    # float32 keeps each (b, n) sum in one thread; only int16 splits E
+    assert (geo.variant == "split") == int16
+    assert geo.splits == 1 or int16
+    if not int16:
+        assert geo.variant in (("narrow",) if N < aer_mod.NARROW_N
+                               else ("merged", "rows"))
+    # the checks of aer_matmul_launch in csrc/aer_matmul.cu
+    assert geo.threads == aer_mod.GROUP * geo.streams
+    assert geo.cols == min(32, N)
+    assert geo.slices * geo.cols >= N > (geo.slices - 1) * geo.cols
+    assert geo.slices <= aer_mod.GRID_YZ_MAX
+    assert geo.smem <= aer_mod.SMEM_LIMIT
+    assert geo.ctas == -(-B // geo.streams) * geo.slices * geo.splits
+    if geo.variant == "merged":
+        assert 1 <= geo.streams <= min(aer_mod.MERGE_MAX, B)
+        # room for the plane and tiles, and for a ring a stream
+        assert geo.smem >= aer_mod.walk_bytes(geo.streams, K, geo.cols)
+        assert geo.smem >= geo.streams * aer_mod.ring_bytes(aer_mod.GROUP, 32, 4)
+        assert geo.e_chunk == E
+        # no fewer streams than the plane allows
+        more = geo.streams + 1
+        assert more > min(aer_mod.MERGE_MAX, B) or (
+            aer_mod.walk_bytes(more, K, 32) > aer_mod.SMEM_LIMIT)
+    else:
+        assert geo.streams == 1
+        assert geo.smem >= aer_mod.ring_bytes(geo.threads, geo.cols, wsize)
+        assert geo.e_chunk % geo.threads == 0 and geo.splits * geo.e_chunk >= E
+        assert (geo.splits - 1) * geo.e_chunk < E  # no empty E-chunk
+    if geo.variant == "rows":  # only where one plane does not fit
+        assert aer_mod.walk_bytes(1, K, 32) > aer_mod.SMEM_LIMIT
+    if int16:  # enough chunks to fill the card, unless E runs out first
+        # (evening out the chunks costs at most half the target)
+        blocks = -(-E // geo.threads)
+        assert 2 * geo.ctas >= min(aer_mod.SPLIT_CTAS, B * geo.slices * blocks)
+
+
+def test_aer_plan_picks_narrow_for_layer1_and_splits_the_single_stream():
+    layer1 = aer_mod.plan(32, 512, 512, 2, False)
+    assert layer1.variant == "narrow" and layer1.cols == 2
+    layer0 = aer_mod.plan(32, 4096, 4096, 512, False)
+    assert layer0.variant == "merged" and layer0.streams == 4
+    single = aer_mod.plan(1, 4096, 4096, 512, True)
+    assert single.variant == "split" and single.splits > 1
+    # the 1,296 live events of the hardware path's busiest step alone span
+    # 11 E-chunks of each of the 16 column slices: 176 CTAs where one
+    # stream had 4 before
+    assert -(-1296 // single.e_chunk) * single.slices == 176
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((1, 8, 8, 64 * 65535 + 1, False), "grid"),  # column slices past 65535
+    ((1, 8, 8, 64 * 65535 + 1, True), "grid"),
+    ((2**31, 8, 8, 8, False), "out of range"),
+    ((-1, 8, 8, 8, False), "out of range"),
+    ((1, 8, 0, 8, True), "out of range"),  # K = 0: no row to read
+])
+def test_aer_plan_rejects_what_the_grid_cannot_hold(shape, match):
+    with pytest.raises(ValueError, match=match):
+        aer_mod.plan(*shape)
+
+
+def test_aer_launcher_takes_the_plan_as_the_source_declares_it():
+    """The wrapper passes each plan field to the C launcher: the variant
+    codes, the smem formula's constants and the argument count agree with
+    ``csrc/aer_matmul.cu`` (which no compiler reads on this machine)."""
+    src = (_build.CSRC / "aer_matmul.cu").read_text()
+    assert ("enum { AER_ROWS = 0, AER_NARROW = 1, AER_SPLIT = 2, "
+            "AER_MERGED = 3 };") in src
+    assert aer_mod.VARIANTS == {"rows": 0, "narrow": 1, "split": 2, "merged": 3}
+    assert f"#define AER_SMEM_MAX {aer_mod.SMEM_LIMIT}" in src
+    decl = src[src.index('extern "C" int aer_matmul_launch('):]
+    params = decl[:decl.index(")")].count(",") + 1
+    assert params == len(_build.SIGNATURES["aer_matmul"][1]) == 18
+    assert "static_cast<size_t>(2 * AER_LEAD + 1) * threads * 8" in src
+    assert "streams * kp * 4 + 2ull * AER_TILE_ROWS * row_pitch(cols, 4) * 4" in src
+    for name, value in (("AER_TILE_ROWS", aer_mod.TILE_ROWS),
+                        ("AER_MERGE_MAX", aer_mod.MERGE_MAX),
+                        ("AER_GROUP", aer_mod.GROUP),
+                        ("AER_LEAD", aer_mod.LEAD)):
+        assert f"#define {name} {value} " in src
 
 
 # --------------------------------------------------- the int8 weight split

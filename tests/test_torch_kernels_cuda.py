@@ -177,16 +177,32 @@ def test_kernel_matches_plain_version_at_cluster_shapes(cuda_device, shape, kw):
         assert torch.equal(x, y)
 
 
-def _aer_inputs(B, E, K, N, rate, int16, dev, seed=0):
+def _aer_inputs(B, E, K, N, rate, int16, dev, seed=0, kind="random"):
+    """(addrs, values, weights) on ``dev``.  ``kind``: "random" (live
+    events anywhere, corrupt addresses, the last stream silent), "repeats"
+    (unsorted addresses, each stream hitting a few rows many times),
+    "sorted" (the tables ``runtime.step_events`` builds from a random
+    plane: live first, ascending addresses), "wrap" (int16 sums past
+    -2^31)."""
     rng = np.random.default_rng(seed)
     a = rng.integers(0, K, (B, E)).astype(np.int32)
-    a[0, :4] = [-1, K, K + 9, 0]  # corrupt addresses are skipped
+    if kind == "repeats":
+        a = rng.choice(rng.integers(0, K, 5), (B, E)).astype(np.int32)
+    a[0, :4] = [-1, K, K + 9, 0][:E]  # corrupt addresses are skipped
     v = np.where(rng.random((B, E)) < rate,
                  rng.choice([-1.0, 1.0, 0.5], (B, E)), 0.0).astype(np.float32)
     v[-1] = 0.0  # a stream with no event
+    if kind == "sorted":
+        plane = (rng.random((B, K)) < rate) * rng.choice([-1.0, 1.0], (B, K))
+        plane[-1] = 0.0
+        at, vt, _ = runtime.step_events(torch.from_numpy(plane.astype(np.float32)), E)
+        a, v = at.numpy(), vt.numpy()
     if int16:
         w = rng.integers(-32768, 32768, (K, N)).astype(np.int16)
         v = np.rint(v).astype(np.int32)
+        if kind == "wrap":
+            w[:] = -32768
+            v = np.where(v != 0, 2**20 + 7, 0).astype(np.int32)
     else:
         w = rng.normal(0, 0.05, (K, N)).astype(np.float32)
     return (torch.from_numpy(a).to(dev), torch.from_numpy(v).to(dev),
@@ -198,9 +214,17 @@ def _aer_inputs(B, E, K, N, rate, int16, dev, seed=0):
 @pytest.mark.parametrize("shape", [(32, 4096, 4096, 512, 0.9),
                                    (32, 4096, 4096, 512, 0.01),
                                    (32, 512, 512, 2, 0.2),
-                                   (5, 300, 77, 200, 0.3)])
-def test_aer_kernel_matches_plain_version_on_card(cuda_device, int16, shape):
-    a, v, w = _aer_inputs(*shape, int16, cuda_device)
+                                   (5, 300, 77, 200, 0.3),
+                                   # both sides of the narrow variant
+                                   *((6, 97, 300, n, 0.5) for n in (1, 2, 31, 32, 33)),
+                                   (3, 4096, 4096, 512, 1.0),  # 4,096 live a stream
+                                   (4, 1, 5, 64, 1.0),  # one event
+                                   (4, 0, 5, 64, 1.0),  # no event at all
+                                   (2, 130, 129, 129, 0.7),
+                                   (2, 300, 60000, 64, 0.5)])  # the "rows" ring
+@pytest.mark.parametrize("kind", ["random", "repeats", "sorted"])
+def test_aer_kernel_matches_plain_version_on_card(cuda_device, int16, shape, kind):
+    a, v, w = _aer_inputs(*shape, int16, cuda_device, kind=kind)
     before = aer_mod.aer_spike_matmul_batched.launches
     got = aer_mod.aer_spike_matmul_batched(a, v, w)
     assert aer_mod.aer_spike_matmul_batched.launches == before + 1
@@ -209,6 +233,57 @@ def test_aer_kernel_matches_plain_version_on_card(cuda_device, int16, shape):
     assert got.dtype == (torch.int32 if int16 else torch.float32)
     assert torch.equal(got, ref)
     assert not got[-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 4096, 4096, 512, 0.9), (3, 700, 64, 2, 1.0)])
+def test_aer_kernel_int16_sums_wrap_on_card(cuda_device, shape):
+    a, v, w = _aer_inputs(*shape, True, cuda_device, kind="wrap")
+    live = ((v != 0) & (a >= 0) & (a < w.shape[0])).sum(1).long().cpu()
+    got = _launched(aer_mod.aer_spike_matmul_batched, a, v, w)
+    assert torch.equal(got, aer_mod.aer_spike_matmul_batched_ref(a, v, w))
+    want = (live * (2**20 + 7) * -32768 + 2**31) % 2**32 - 2**31
+    assert live.max() * (2**20 + 7) * 32768 > 2**31  # the sum does wrap
+    assert torch.equal(got.cpu(), want[:, None].expand(-1, w.shape[1]).to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_aer_kernel_reads_live_events_after_padding_on_card(cuda_device):
+    # padding first, then live events, a silent E-block between two live ones
+    a, v, w = _aer_inputs(6, 900, 4096, 512, 1.0, False, cuda_device, seed=3)
+    v[:, :200] = 0.0
+    v[:, 256:384] = 0.0
+    v[2, :-1] = 0.0  # one live event, the very last
+    v[2, -1] = 1.0
+    for x in (v, v.to(torch.int32)):
+        ww = w if x.dtype == torch.float32 else (w * 1000).to(torch.int16)
+        got = _launched(aer_mod.aer_spike_matmul_batched, a, x, ww)
+        assert torch.equal(got, aer_mod.aer_spike_matmul_batched_ref(a, x, ww))
+        assert got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 4096, 4096, 512, False),
+                                   (32, 512, 512, 2, False),
+                                   (2, 300, 60000, 64, False),
+                                   (1, 4096, 4096, 512, True)])
+def test_aer_kernel_launches_the_planned_variant_on_card(cuda_device, shape):
+    from torch.profiler import ProfilerActivity, profile
+
+    B, E, K, N, int16 = shape
+    a, v, w = _aer_inputs(B, E, K, N, 0.5, int16, cuda_device)
+    geo = aer_mod.plan(B, E, K, N, int16)
+    aer_mod.aer_spike_matmul_batched(a, v, w)  # build, warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        aer_mod.aer_spike_matmul_batched(a, v, w)
+        torch.cuda.synchronize()
+    names = {ev.key for ev in prof.key_averages() if "aer_" in ev.key}
+    if not names:
+        pytest.skip("the profiler recorded no kernel on this machine")
+    assert any(f"aer_{geo.variant}_kernel" in n for n in names), names
+    assert not any(f"aer_{other}_kernel" in n for n in names
+                   for other in aer_mod.VARIANTS if other != geo.variant)
 
 
 @pytest.mark.cuda
@@ -329,7 +404,9 @@ def test_q115_kernel_matches_plain_version_on_card(cuda_device, shape, saturate)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,N,rate", [(4096, 512, 0.3), (512, 2, 0.5),
-                                      (257, 129, 1.0), (64, 32, 0.0)])
+                                      (257, 129, 1.0), (64, 32, 0.0),
+                                      (4096, 512, 1.0),  # 4,096 live events
+                                      *((300, n, 0.5) for n in (1, 2, 31, 32, 33))])
 def test_aer_single_kernel_matches_plain_and_dense_on_card(cuda_device, K, N, rate):
     rng = np.random.default_rng(K + N)
     row = (rng.random(K) < rate).astype(np.int8)
@@ -345,6 +422,19 @@ def test_aer_single_kernel_matches_plain_and_dense_on_card(cuda_device, K, N, ra
     assert torch.equal(got, ref.aer_spike_matmul_ref(a, v, w))
     dense = ref.spike_matmul_ref(torch.from_numpy(row[None]).to(cuda_device), w)[0]
     assert torch.equal(got, dense)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "repeats", "sorted", "wrap"])
+@pytest.mark.parametrize("E,N", [(4096, 512), (1000, 2), (97, 33), (0, 8), (1, 31)])
+def test_aer_single_kernel_edges_on_card(cuda_device, kind, E, N):
+    a, v, w = _aer_inputs(2, E, 4096, N, 0.5, True, cuda_device, seed=E + N,
+                          kind=kind)
+    a, v = a[0], v[0].to(torch.int8 if kind != "wrap" else torch.int32)
+    if kind != "random":  # live events after padding, in any order
+        v[: E // 3] = 0
+    got = _launched(ops.aer_spike_matmul, a, v, w)
+    assert torch.equal(got, ref.aer_spike_matmul_ref(a, v, w))
 
 
 @pytest.mark.cuda
