@@ -40,21 +40,30 @@ Phases, in order; any failure exits non-zero:
 7. Hardware path (the public kernel API, ``repro_torch.kernels.ops``):
    ``ops.snn_layer_forward`` layer by layer at 4096-512-2, T = 25, B = 8
    over deterministically rate-coded collision images, with refractory 0
-   and 5 (2 ``spike_matmul`` + 2 ``lif_fused`` launches a forward), then
+   and 5 (2 ``spike_matmul`` + 2 ``lif_fused`` launches a forward, the
+   LIF kernel fed the adder tree's int32 sums), then
    ``ops.aer_spike_matmul`` on the busiest coded step of each frame and
    ``ops.q115_matmul`` at the hardware path's and kernel_bench's shapes.
    Checks the launch counts, output spike trains equal to the same
    forward through the plain versions, and prints the wall time per
-   forward and the table-4 op count from ``hidden_spike_rates``.
+   forward, the table-4 op count from ``hidden_spike_rates``, and the
+   device time and device operations of one forward (``torch.profiler``)
+   beside the same forward with the bias add, conversion and divide as
+   three eager ops before a float LIF launch (the former dataflow).
 8. Kernels against plain versions at the hardware path's shapes:
-   ``lif_fused`` (reset zero and subtract, refractory 0 and 5),
-   ``spike_matmul`` (both layers), ``aer_spike_matmul`` (each frame's
-   busiest step, also against ``spike_matmul`` on the same row) and
-   ``q115_matmul`` (saturate True and False, both shapes), all bit-exact;
-   times each kernel, its plain version and its library yardstick where
-   one PyTorch call computes the same function, and computes its bound.
+   ``lif_fused`` in both input forms (float currents; int32 sums and
+   bias), reset zero and subtract, refractory 0 and 5, ``spike_matmul``
+   (both layers), ``aer_spike_matmul`` (each frame's busiest step, also
+   against ``spike_matmul`` on the same row) and ``q115_matmul``
+   (saturate True and False, both shapes, launch plan printed), all
+   bit-exact; times each kernel, its plain version and its library
+   yardstick where one PyTorch call computes the same function, and
+   computes its bound.  Also times an empty kernel on the LIF kernel's
+   grid (the LIF kernel's floor) and the ``q115_matmul`` inner loop's
+   instruction pair alone on every SM (the rate its bound assumes).
 9. Prints the kernel table as one JSON line (the aer row also carries
-   the sparse and layer-1 times and every phase-5 case), then
+   the sparse and layer-1 times and every phase-5 case; the lif row its
+   second form and floor; the q115 row each shape and saturation), then
    ``{"ok": true, ...}`` as the last line.
 
 There is no CPU fallback: without a CUDA device the script exits 2.
@@ -62,6 +71,7 @@ There is no CPU fallback: without a CUDA device the script exits 2.
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -79,6 +89,12 @@ INT8_TC_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 # int32 lanes of the CUDA cores: 132 SMs x 64 lanes x 1.98 GHz boost (the
 # clock at which 128 float32 lanes give the 67 TFLOP/s above)
 INT32_OPS = 132 * 64 * 1.98e9
+# integer instructions the CUDA cores issue: 132 SMs x 4 sub-partitions x
+# one warp instruction (32 lanes) a clock x 1.98 GHz.  q115_matmul's
+# product is an IMAD on the FMA pipe and a LEA on the ALU pipe (its SASS),
+# 16 lanes a sub-partition each, so the pair is bound by issue, not by
+# one pipe's 64 lanes an SM (phase 8 measures the pair's rate)
+INT_ISSUE_OPS = 132 * 4 * 32 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -157,24 +173,53 @@ def device_time_us(torch, prof):
     return out
 
 
-def device_ms(fn, reps=20, only=None):
-    """Mean device time of one call of ``fn`` (ms): the summed durations of
+RECORD_OFFSETS = []  # per_call: each kernel's records less reps x its launches
+
+
+def per_call(torch, prof, reps, only=None):
+    """(device ms, device operations) of one of ``reps`` profiled calls:
+    for each kernel, copy or fill name (holding ``only``, if given) its
+    mean duration times its launches a call, the number of its records
+    over ``reps`` rounded.  A profiler run can lose a record or carry a
+    stray few (a 0.5 ms kernel once timed 20-25 % short of its
+    CUDA-event time when divided by ``reps``); the mean and the rounding
+    take neither into the time.  (None, 0) when no device time was
+    recorded."""
+    us, ops = 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0.0)
+        if (t <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
+                or (only is not None and only not in ev.key)):
+            continue
+        n = round(ev.count / reps)
+        RECORD_OFFSETS.append(ev.count - n * reps)
+        us, ops = us + t / ev.count * n, ops + n
+    return (us / 1e3 if us > 0 else None), ops
+
+
+def device_ms(fn, reps=20, only=None, runs=3):
+    """Mean device time of one call of ``fn`` (ms): the durations of
     everything its calls ran on the card (or of the kernels whose name
-    holds ``only``), from ``torch.profiler``, so host time between launches
-    is left out.  None when the profiler recorded no device time."""
+    holds ``only``), from ``torch.profiler`` (``per_call``), so host time
+    between launches is left out; the median over ``runs`` profiler runs
+    of ``reps`` calls, as a run late in this script can read far off.
+    None when the profiler recorded no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(t for k, t in device_time_us(torch, prof).items()
-             if only is None or only in k)
-    return us / reps / 1e3 if us > 0 else None
+    times = []
+    for _ in range(runs):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = per_call(torch, prof, reps, only)[0]
+        if ms is not None:
+            times.append(ms)
+    return statistics.median(times) if times else None
 
 
 def bound_of(nbytes, ops, rate):
@@ -763,6 +808,48 @@ def hw_forward(ops, snn, params, spikes, refractory):
     return outs
 
 
+def hw_forward_eager(ops, snn, quant, params, spikes, refractory):
+    """The hardware path in its former dataflow: the bias add, the int32 ->
+    float32 conversion and the divide by 2^15 as three eager ops between
+    ``spike_matmul`` and the float form of the LIF kernel."""
+    import torch
+
+    h = spikes
+    for i in range(len(params)):
+        lp = params[f"layer{i}"]
+        T, B, K = h.shape
+        acc = ops.spike_matmul(h.reshape(T * B, K).to(torch.int8),
+                               quant.quantize(lp["w"]))
+        acc = acc + quant.quantize(lp["b"]).to(torch.int32)[None, :]
+        cur = (acc.to(torch.float32) / quant.Q1_15.scale).reshape(T, B, -1)
+        h, _ = ops.lif_fused(cur, snn.effective_beta(lp), lp["threshold"],
+                             refractory_steps=refractory)
+    return h
+
+
+def forward_profile(torch, fn, reps=5, runs=3):
+    """(device ms, device operations) of one call of ``fn``: kernels,
+    copies and fills that ``torch.profiler`` saw on the card (``per_call``),
+    the median over ``runs`` profiler runs of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(runs):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms, ops = per_call(torch, prof, reps)
+        if ms is not None:
+            got.append((ms, ops))
+    if not got:
+        return None, 0
+    got.sort()
+    return got[len(got) // 2]
+
+
 def hw_inputs(torch, dev, params_np):
     """Params on the card, the rate-coded (T, B, 4096) train of B collision
     images, each frame's busiest coded step as an event list, and the Q1.15
@@ -803,7 +890,8 @@ def phase_hw_path(torch, dev, params_np, card):
     from unittest import mock
 
     from repro_torch.configs.collision_snn import CONFIG
-    from repro_torch.core import energy, snn
+    from repro_torch.core import energy, quant, snn
+    from repro_torch.kernels import lif_fused as lif_mod
     from repro_torch.kernels import ops, ref
 
     params, spikes, t_ev, addrs, values, wq, q_cases = hw_inputs(
@@ -833,7 +921,9 @@ def phase_hw_path(torch, dev, params_np, card):
         fail(f"hardware path launches {launches}, want {want}")
 
     with mock.patch.object(ops, "spike_matmul", ref.spike_matmul_ref), \
-            mock.patch.object(ops, "lif_fused", ref.lif_fused_ref):
+            mock.patch.object(ops, "lif_fused", ref.lif_fused_ref), \
+            mock.patch.object(ops, "lif_fused_from_acc",
+                              lif_mod.lif_fused_from_acc_ref):
         plain = {r: hw_forward(ops, snn, params, spikes, r) for r in (0, 5)}
     for r in (0, 5):
         for i, (got, exp) in enumerate(zip(outs[r], plain[r])):
@@ -881,16 +971,76 @@ def phase_hw_path(torch, dev, params_np, card):
           f" -> {opcount.total_ops():.4e} ops, {opcount.energy_pj():.4e} pJ "
           f"per inference (table 4's event model) | argmax agrees with the "
           f"Q1.15 float graph on {agree}/{B} (not gated)")
+    # the forward's device time, against the former three-op dataflow
+    eager = hw_forward_eager(ops, snn, quant, params, spikes, 0)
+    if not torch.equal(eager, outs[0][-1]):
+        fail("hardware path: the three-op forward differs from the fused one")
+    fused_ms, fused_n = forward_profile(
+        torch, lambda: hw_forward(ops, snn, params, spikes, 0))
+    eager_ms, eager_n = forward_profile(
+        torch, lambda: hw_forward_eager(ops, snn, quant, params, spikes, 0))
+    print(f"hardware path: device time a forward (torch.profiler) "
+          f"{fused_ms or 0:.4f} ms in {fused_n} device operations | "
+          f"with the bias add, conversion and divide as three eager ops "
+          f"before a float LIF launch (the former dataflow) {eager_ms or 0:.4f} ms in "
+          f"{eager_n} | same output spikes | on {card}")
     return {"launches": launches, "wall_ms": wall_ms, "params": params,
             "spikes": spikes, "hidden": outs[0][0], "t_ev": t_ev, "addrs": addrs,
             "values": values, "wq": wq, "q_cases": q_cases}
 
 
-def _layer_currents(torch, ref, spk_i8, wq, b, T):
+def _layer_acc(torch, ref, spk_i8, wq, b, T):
+    """A layer's adder-tree sums (T, B, N) int32 and int32 bias codes."""
     from repro_torch.core import quant
 
-    acc = ref.spike_matmul_ref(spk_i8, wq) + quant.quantize(b).to(torch.int32)
-    return (acc.to(torch.float32) / quant.Q1_15.scale).reshape(T, HW_BATCH, -1)
+    acc = ref.spike_matmul_ref(spk_i8, wq).reshape(T, HW_BATCH, -1)
+    return acc, quant.quantize(b).to(torch.int32)
+
+
+def lif_floor_ms(torch, B, N):
+    """Device time of an empty kernel on the LIF kernel's grid for (B, N)
+    (``lif_empty_launch`` in csrc/lif_fused.cu): the launch-and-schedule
+    floor of its device time."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    _build.load("lif_fused")
+    fn = ctypes.CDLL(str(_build.library_path("lif_fused"))).lif_empty_launch
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call():
+        if fn(B, N, torch.cuda.current_stream().cuda_stream) != 0:
+            fail("the empty kernel did not launch")
+
+    return device_ms(call, reps=50)
+
+
+def q115_pair_rate(torch):
+    """Products a second of q115_matmul's inner instruction pair alone
+    (``q115_rate_launch``: 4 CTAs of 256 threads an SM, 2,000 rounds of 32
+    products a thread), from CUDA events around back-to-back launches of
+    this half-millisecond kernel."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    _build.load("q115_matmul")
+    fn = ctypes.CDLL(str(_build.library_path("q115_matmul"))).q115_rate_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks, threads, rounds = 132 * 4, 256, 2000
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+
+    def call():
+        if fn(out.data_ptr(), blocks, threads, rounds,
+              torch.cuda.current_stream().cuda_stream) != 0:
+            fail("the q115 rate kernel did not launch")
+
+    ms = cuda_ms(call, reps=10, rounds=3)
+    return blocks * threads * rounds * 32 / (ms * 1e-3)
 
 
 def phase_ops_kernels(torch, dev, hw, card):
@@ -898,8 +1048,10 @@ def phase_ops_kernels(torch, dev, hw, card):
     the hardware path's shapes; times, bounds, library yardsticks."""
     import torch.nn.functional as F
 
-    from repro_torch.core import snn
+    from repro_torch.core import quant, snn
+    from repro_torch.kernels import lif_fused as lif_mod
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import q115_matmul as q_mod
 
     params, spikes, wq = hw["params"], hw["spikes"], hw["wq"]
     T = spikes.shape[0]
@@ -907,24 +1059,32 @@ def phase_ops_kernels(torch, dev, hw, card):
               hw["hidden"].reshape(T * HW_BATCH, -1).to(torch.int8)]
     out = {}
 
-    # lif_fused
+    # lif_fused, both input forms: float currents, and the adder tree's
+    # int32 sums with the int32 bias (ops.snn_layer_forward's form)
     worst = 0.0
     for i, plane in enumerate(planes):
         lp = params[f"layer{i}"]
-        cur = _layer_currents(torch, ref, plane, wq[i], lp["b"], T)
+        acc, bq = _layer_acc(torch, ref, plane, wq[i], lp["b"], T)
+        cur = (acc + bq).to(torch.float32) / quant.Q1_15.scale
         beta, thr = snn.effective_beta(lp), lp["threshold"]
+        forms = (("float", ops.lif_fused, ref.lif_fused_ref, (cur, beta, thr)),
+                 ("int32", lif_mod.lif_fused_from_acc,
+                  lif_mod.lif_fused_from_acc_ref, (acc, bq, beta, thr)))
         for reset in ("zero", "subtract"):
             for r in (0, 5):
                 kw = dict(refractory_steps=r, reset=reset)
-                got, exp = ops.lif_fused(cur, beta, thr, **kw), ref.lif_fused_ref(cur, beta, thr, **kw)
-                torch.cuda.synchronize()
-                err = float((got[1] - exp[1]).abs().max())
-                if not (torch.equal(got[0], exp[0]) and torch.equal(got[1], exp[1])):
-                    fail(f"lif_fused layer {i} {reset} refractory {r}: differs "
-                         f"from its plain version (max |d u| {err})")
-                worst = max(worst, err)
+                for form, fn, plain, a in forms:
+                    got, exp = fn(*a, **kw), plain(*a, **kw)
+                    torch.cuda.synchronize()
+                    err = float((got[1] - exp[1]).abs().max())
+                    if not (torch.equal(got[0], exp[0]) and
+                            torch.equal(got[1], exp[1])):
+                        fail(f"lif_fused ({form}) layer {i} {reset} refractory "
+                             f"{r}: differs from its plain version (max |d u| "
+                             f"{err})")
+                    worst = max(worst, err)
         if i == 0:
-            args = (cur, beta, thr)
+            args, acc_args = (cur, beta, thr), (acc, bq, beta, thr)
     Tn, Bn, N = args[0].shape
     bound = bound_of((2 * Tn * Bn * N + Bn * N + 2 * N) * 4, 5 * Tn * Bn * N,
                      F32_FLOPS)
@@ -932,6 +1092,20 @@ def phase_ops_kernels(torch, dev, hw, card):
                                lambda: ref.lif_fused_ref(*args)),
                         "bound_by": bound[0], "bound_ms": bound[1],
                         "max_abs_err": worst}
+    out["lif_fused"]["extra"] = {
+        "ms_from_acc": kernel_ms(lambda: lif_mod.lif_fused_from_acc(*acc_args)),
+        "plain_ms_from_acc": kernel_ms(
+            lambda: lif_mod.lif_fused_from_acc_ref(*acc_args), 5),
+        "floor_ms": lif_floor_ms(torch, Bn, N),
+    }
+    lif_x = out["lif_fused"]["extra"]
+    print(f"ops kernel[lif_fused]: ({Tn}, {Bn}, {N}) on "
+          f"{-(-Bn * N // lif_mod.THREADS)} CTAs of {lif_mod.THREADS} threads"
+          f" | float form {out['lif_fused']['ms']:.5f}"
+          f" ms, int32 form {lif_x['ms_from_acc']:.5f} ms (plain "
+          f"{lif_x['plain_ms_from_acc']:.4f} ms) | an empty kernel on the same "
+          f"grid {lif_x['floor_ms'] or 0:.5f} ms (the floor) | bytes bound "
+          f"{bound[1]:.5f} ms | on {card}")
 
     # spike_matmul
     for i, plane in enumerate(planes):
@@ -989,17 +1163,52 @@ def phase_ops_kernels(torch, dev, hw, card):
             if not torch.equal(ops.q115_matmul(x, w, saturate=sat), plain(x, w)):
                 fail(f"q115_matmul {name} saturate={sat}: differs from its "
                      f"plain version")
+            geo = q_mod.plan(*x.shape, w.shape[1], sat)
+            print(f"q115_matmul geometry[{name} "
+                  f"{'saturate' if sat else 'raw'}]: tiles "
+                  f"{q_mod.ROWS_PER_WARP * geo.warps} x {q_mod.TILE_N} (m, n), "
+                  f"{geo.m_tiles} x {geo.n_tiles} tiles x split-K {geo.split} "
+                  f"({geo.k_per_split} k each, clusters of {geo.cluster}"
+                  f"{', atomicAdd across them' if geo.atomic else ''}) = "
+                  f"{geo.ctas} CTAs of {32 * geo.warps} threads")
     q_times = {}
     for name, (x, w, _) in hw["q_cases"].items():
         M, K = x.shape
         N = w.shape[1]
-        bound = bound_of(M * K * 2 + K * N * 2 + M * N * 4, 3 * M * K * N,
-                         INT32_OPS)
+        # two integer instructions a product (IMAD, LEA.HI.SX32: the SASS),
+        # bound by issue; the former count, 3 on 64 lanes an SM, is kept
+        # as the superseded bound
+        bound = bound_of(M * K * 2 + K * N * 2 + M * N * 4, 2 * M * K * N,
+                         INT_ISSUE_OPS)
         q_times[name] = {
             **timed(lambda: ops.q115_matmul(x, w, saturate=False),
                     lambda: ref.q115_matmul_acc_ref(x, w)),
-            "bound_by": bound[0], "bound_ms": bound[1], "max_abs_err": 0.0}
-    out["q115_matmul"] = q_times["200x4096x512"]
+            "ms_saturate": kernel_ms(lambda: ops.q115_matmul(x, w)),
+            "alone_ms": device_ms(lambda: ops.q115_matmul(x, w, saturate=False),
+                                  only="q115_matmul_kernel"),
+            "bound_by": bound[0], "bound_ms": bound[1],
+            "bound_superseded_ms": 3 * M * K * N / INT32_OPS * 1e3,
+            "max_abs_err": 0.0}
+    rate = q115_pair_rate(torch)
+    big = q_times["200x4096x512"]
+    print(f"q115_matmul bound: 2 integer instructions a product (IMAD on the "
+          f"FMA pipe, LEA.HI.SX32 on the ALU pipe) issued at {INT_ISSUE_OPS:.4e}"
+          f" a second = 64 products a clock an SM: {big['bound_ms']:.5f} ms at "
+          f"200x4096x512 (superseded 3-operation count "
+          f"{big['bound_superseded_ms']:.5f} ms) | the pair alone on every SM "
+          f"{rate:.4e} products/s ({rate / (132 * 1.98e9):.1f} a "
+          f"clock an SM at 1.98 GHz) | on {card}")
+    for name, rec in q_times.items():
+        print(f"q115_matmul time[{name}]: raw {rec['ms']:.4f} ms (kernel alone "
+              f"{rec['alone_ms'] or 0:.4f}), saturated {rec['ms_saturate']:.4f}"
+              f" ms | bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
+              f"{rec['ms'] / rec['bound_ms']:.2f}x | on {card}")
+    out["q115_matmul"] = {**big, "extra": {
+        "pair_products_per_s": rate,
+        "bound_superseded_ms": big["bound_superseded_ms"],
+        "cases": {k: {f: v[f] for f in ("ms", "ms_saturate", "alone_ms",
+                                        "plain_ms", "bound_ms")}
+                  for k, v in q_times.items()}}}
 
     rows = [(k, v) for k, v in out.items() if k != "q115_matmul"]
     for name, rec in rows + [("q115_matmul " + k, v) for k, v in q_times.items()]:
@@ -1034,6 +1243,7 @@ def ops_rows(hw, ops_k):
         "launches": hw["launches"][name],
         **{k: ops_k[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms")},
+        **ops_k[name].get("extra", {}),
     } for name, source, replaces in (
         ("lif_fused", "lif_fused", "src/repro/kernels/lif_fused.py:82"),
         ("spike_matmul", "spike_matmul", "src/repro/kernels/spike_matmul.py:67"),
@@ -1094,6 +1304,12 @@ def main() -> int:
     hw = phase_hw_path(torch, dev, params_np, card)
     # 8. the API's kernels against their plain versions
     ops_k = phase_ops_kernels(torch, dev, hw, card)
+
+    odd = collections.Counter(x for x in RECORD_OFFSETS if x)
+    print(f"profiler: {sum(odd.values())} of {len(RECORD_OFFSETS)} kernel "
+          f"readings held records off a whole number a call (records less "
+          f"reps x launches: {dict(odd)}); their times use each kernel's mean "
+          f"duration")
 
     # 9. results
     dense = aer["layer0_dense_t0"]

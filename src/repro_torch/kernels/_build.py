@@ -37,8 +37,8 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
         "aer_matmul_launch",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
-    "lif_fused": ("lif_fused_launch", [_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
-    "q115_matmul": ("q115_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "lif_fused": ("lif_fused_launch", [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
+    "q115_matmul": ("q115_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "snn_chunk": (
         "snn_chunk_launch",
         [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,

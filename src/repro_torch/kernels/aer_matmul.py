@@ -23,6 +23,15 @@ Contracts, those of the reference's ``repro.kernels.aer_matmul``:
 An event whose value is 0 (padding) or whose address lies outside
 [0, K) contributes nothing, and no row outside [0, K) is ever read.
 
+The contract holds on valid input: an address in [0, K) on every live
+event, and finite float32 weights.  Padding slots point at row 0
+(``runtime.step_events``); the reference's Pallas kernel multiplies the
+padding slots of every E block that holds a live event (0 * inf is NaN)
+and skips a block that holds none, so for a non-finite row that padding
+addresses its answer depends on its TPU tiling (``block_e``).  The port
+adds live events only, so a non-finite row reaches a sum only where a
+live event reads it.
+
 ``plan`` is the kernel's launch geometry: which of its four variants runs
 (for float32 ``merged`` at N >= 32, ``narrow`` at N < 32, ``rows`` where
 the merged CTA's shared memory does not fit; ``split`` for int16 weights,
@@ -166,7 +175,8 @@ def aer_spike_matmul_batched(
     values: Tensor,  # (B, E) signed event values, 0 on padding
     weights: Tensor,  # (K, N) int16 Q1.15 codes or float32 weights
 ) -> Tensor:
-    """(B, N) int32 for int16 weights, float32 for float32 weights."""
+    """(B, N) int32 for int16 weights, float32 for float32 weights;
+    the weights must be finite (module docstring)."""
     if not addrs.is_cuda:
         return aer_spike_matmul_batched_ref(addrs, values, weights)
     out = _launch(addrs, values, weights)

@@ -6,7 +6,9 @@ the path (a CUDA tensor launches the hand-written kernel or raises, a CPU
 tensor runs the plain version), so there is no ``on_tpu()`` and no
 ``interpret``.  Also hosts the composed op of the inference path,
 ``snn_layer_forward``: spike_matmul -> bias -> lif_fused, the paper's
-Fig. 5 pipeline (cascaded adder -> LIF neuron hardware unit).
+Fig. 5 pipeline (cascaded adder -> LIF neuron hardware unit), as two
+kernels: the LIF kernel takes the adder tree's int32 sums and adds the
+bias itself (``lif_fused_from_acc``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from repro_torch.kernels.aer_matmul import (  # noqa: F401
     aer_spike_matmul,
     aer_spike_matmul_batched,
 )
-from repro_torch.kernels.lif_fused import lif_fused
+from repro_torch.kernels.lif_fused import lif_fused, lif_fused_from_acc  # noqa: F401
 from repro_torch.kernels.q115_matmul import q115_matmul  # noqa: F401
 from repro_torch.kernels.snn_chunk import snn_chunk  # noqa: F401
 from repro_torch.kernels.spike_matmul import spike_matmul
@@ -44,19 +46,18 @@ def snn_layer_forward(
     """
     T, B, fan_in = spikes_T.shape
     wq = quant.quantize(w, quant.Q1_15)  # (fan_in, fan_out) int16
-    bq = quant.quantize(b, quant.Q1_15)  # bias in the same Q1.15 scale
+    # bias in the same Q1.15 scale, as int32 codes
+    bq = quant.quantize(b, quant.Q1_15).to(torch.int32)
 
     # integrate all T steps: fold time into rows for one big integration
     spk_i8 = spikes_T.reshape(T * B, fan_in).to(torch.int8)
     acc = spike_matmul(spk_i8, wq)  # (T*B, fan_out) int32
-    # bias added post-adder-tree in the same fixed-point scale (paper §4.3)
-    acc = acc + bq.to(torch.int32)[None, :]
-    # int32 -> f32 rounds to nearest even, then an exact power-of-2 divide,
-    # as the reference converts (|acc| may exceed 2^24)
-    currents = acc.to(torch.float32) / quant.Q1_15.scale
-    currents = currents.reshape(T, B, -1)
-
-    out_spikes, _ = lif_fused(
-        currents, beta, threshold, refractory_steps=refractory_steps
+    # the LIF kernel adds the bias post-adder-tree in the same fixed-point
+    # scale (paper §4.3; int32 wrap), converts int32 -> f32 to nearest even
+    # and divides exactly by 2^15, as the reference does in three ops
+    # (|acc| may exceed 2^24)
+    out_spikes, _ = lif_fused_from_acc(
+        acc.reshape(T, B, -1), bq, beta, threshold,
+        refractory_steps=refractory_steps,
     )
     return out_spikes

@@ -96,6 +96,36 @@ def test_aer_matmul_plain_version_adds_in_event_order_and_skips_bad_events():
     np.testing.assert_array_equal(got, want)
 
 
+def test_aer_matmul_contract_holds_on_finite_weights_only():
+    """Finite weights are part of the AER contract, as addresses in range
+    are.  A padding slot (value 0) points at row 0; with W[0] = inf the
+    reference's Pallas kernel adds 0 * inf = NaN for every padding slot of
+    an E block that holds a live event and skips a block that holds none,
+    so its answer depends on ``block_e``, a TPU tiling parameter; the port
+    adds live events only.  On finite weights all of them agree."""
+    a = np.array([[1, 0, 0, 0]], np.int32)
+    v = np.array([[1, 0, 0, 0]], np.float32)
+    w = np.array([[np.inf, 1], [2, 3], [4, 5]], np.float32)
+
+    def pallas(weights, block_e):
+        return np.asarray(ref_aer_mm.aer_spike_matmul_batched(
+            jnp.asarray(a), jnp.asarray(v), jnp.asarray(weights),
+            block_e=block_e, interpret=True))
+
+    for block_e in (2, 4):
+        np.testing.assert_array_equal(pallas(w, block_e), [[np.nan, 3]])
+    np.testing.assert_array_equal(pallas(w, 1), [[2, 3]])
+    port = aer_matmul.aer_spike_matmul_batched(t(a), t(v), t(w))
+    np.testing.assert_array_equal(port.numpy(), [[2, 3]])
+    finite = w.copy()
+    finite[0, 0] = 7.0
+    for block_e in (1, 2, 4):
+        np.testing.assert_array_equal(pallas(finite, block_e), [[2, 3]])
+    np.testing.assert_array_equal(
+        aer_matmul.aer_spike_matmul_batched(t(a), t(v), t(finite)).numpy(),
+        [[2, 3]])
+
+
 def test_aer_matmul_runs_the_plain_version_on_cpu_and_checks_inputs():
     a, v = _tables(2, 8, 8, 0.5)
     w = RNG.normal(0, 1, (8, 3)).astype(np.float32)

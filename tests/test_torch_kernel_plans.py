@@ -1,10 +1,12 @@
 """Launch planning of the port's redesigned kernels, on the CPU: the
-tiles and split-K of ``spike_matmul``, the columns, step block and
-shared memory of ``snn_chunk``, and the variant, columns, E-split and
-shared memory of the aer kernel, at the collision shapes and at the
-edges; and the int8 weight split the ``spike_matmul`` kernel runs on its
-tensor cores (w = 256 * hi + lo), held in numpy against the reference's
-``spike_matmul_ref`` (JAX) and the port's plain version.
+tiles and split-K of ``spike_matmul`` and ``q115_matmul``, the columns,
+step block and shared memory of ``snn_chunk``, the variant, columns,
+E-split and shared memory of the aer kernel, at the collision shapes and
+at the edges; the int8 weight split the ``spike_matmul`` kernel runs on
+its tensor cores (w = 256 * hi + lo), held in numpy against the
+reference's ``spike_matmul_ref`` (JAX) and the port's plain version; and
+the ``q115_matmul`` split-K sums, added in any order, against the
+reference's ``q115_matmul_ref``.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernel_plans.py
 """
@@ -18,6 +20,8 @@ import jax.numpy as jnp
 from repro.kernels import ref as ref_kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels import aer_matmul as aer_mod
+from repro_torch.kernels import lif_fused as lif_mod
+from repro_torch.kernels import q115_matmul as q115_mod
 from repro_torch.kernels import snn_chunk as chunk_mod
 from repro_torch.kernels import spike_matmul as smm_mod
 
@@ -286,3 +290,117 @@ def test_weight_split_equals_both_references(kind, shape):
     if kind == "overflow":
         want = (K * 127 * -(2**15) + 2**31) % 2**32 - 2**31
         assert (got == want).all()
+
+
+# ------------------------------------------------------- q115_matmul plan
+@pytest.mark.parametrize("shape,saturate,want", [
+    # (M, K, N): (warps, m_tiles, n_tiles, split, k_per_split, cluster, ctas)
+    ((200, 4096, 512), False, (8, 4, 4, 16, 256, 1, 256)),  # hardware path
+    ((200, 4096, 512), True, (8, 4, 4, 8, 512, 8, 128)),
+    ((128, 512, 128), True, (4, 4, 1, 8, 64, 8, 32)),  # kernel_bench
+    ((128, 512, 128), False, (4, 4, 1, 16, 32, 1, 64)),
+    ((1, 1, 1), True, (4, 1, 1, 1, 8, 1, 1)),
+    ((33, 129, 65), False, (4, 2, 1, 5, 32, 1, 10)),
+    ((33, 129, 65), True, (4, 2, 1, 5, 32, 5, 10)),
+    ((16, 4096, 8), False, (4, 1, 1, 128, 32, 1, 128)),
+    ((16, 4096, 8), True, (4, 1, 1, 8, 512, 8, 8)),
+    ((5, 0, 7), False, (4, 1, 1, 1, 8, 1, 1)),  # K = 0: zeros, one pass
+    ((4096, 4096, 4096), True, (8, 64, 32, 1, 4096, 1, 2048)),  # no split
+])
+def test_q115_plan_at_known_shapes(shape, saturate, want):
+    geo = q115_mod.plan(*shape, saturate)
+    got = (geo.warps, geo.m_tiles, geo.n_tiles, geo.split, geo.k_per_split,
+           geo.cluster, geo.ctas)
+    assert got == want
+    assert geo.atomic == (geo.split > 1 and not saturate)
+
+
+@pytest.mark.parametrize("M", [1, 31, 64, 128, 200, 1000])
+@pytest.mark.parametrize("K", [0, 1, 7, 31, 33, 100, 512, 4096, 9999])
+@pytest.mark.parametrize("N", [1, 8, 129, 512])
+@pytest.mark.parametrize("saturate", [False, True])
+def test_q115_plan_covers_k_without_an_empty_split(M, K, N, saturate):
+    geo = q115_mod.plan(M, K, N, saturate)
+    rows = q115_mod.ROWS_PER_WARP * geo.warps
+    assert geo.warps in (4, 8)
+    assert geo.m_tiles * rows >= M > (geo.m_tiles - 1) * rows
+    assert geo.n_tiles * q115_mod.TILE_N >= N > (geo.n_tiles - 1) * q115_mod.TILE_N
+    assert geo.k_per_split % q115_mod.K_STEP == 0
+    if geo.k_per_split > q115_mod.TILE_K:
+        assert geo.k_per_split % q115_mod.TILE_K == 0  # whole slabs
+    # the launcher's split (ceil(K / k_per_split)) covers K, none empty
+    assert geo.split == max(1, -(-K // geo.k_per_split))
+    assert (geo.split - 1) * geo.k_per_split < max(K, 1)
+    assert geo.split % geo.cluster == 0 and geo.cluster <= q115_mod.CLUSTER_MAX
+    if saturate:  # one cluster holds the whole sum
+        assert geo.cluster == geo.split
+    assert geo.split <= max(1, q115_mod.TARGET_CTAS, -(-K // q115_mod.TILE_K))
+
+
+@pytest.mark.parametrize("shape", [(-1, 4, 4), (4, 4, 2**31),
+                                   (64 * 65535 + 1, 4096, 8)])
+def test_q115_plan_rejects_what_the_grid_cannot_hold(shape):
+    with pytest.raises(ValueError, match="q115_matmul"):
+        q115_mod.plan(*shape)
+
+
+def test_q115_launcher_takes_the_plan_as_the_source_declares_it():
+    """The wrapper passes warps and k_per_split to the C launcher, which
+    recomputes split = ceil(K / k_per_split) and the plan's cluster (every
+    split of a saturating product, else 1): the tile, slab, step and
+    cluster constants and the argument count agree with
+    ``csrc/q115_matmul.cu`` (which no compiler reads on this machine)."""
+    src = (_build.CSRC / "q115_matmul.cu").read_text()
+    for name, value in (("Q_BN", q115_mod.TILE_N), ("Q_BK", q115_mod.TILE_K),
+                        ("Q_KSTEP", q115_mod.K_STEP),
+                        ("Q_TM", q115_mod.ROWS_PER_WARP),
+                        ("Q_CLUSTER_MAX", q115_mod.CLUSTER_MAX)):
+        assert f"#define {name} {value} " in src
+    assert "(warps != 4 && warps != 8)" in src
+    assert "(saturate && split > Q_CLUSTER_MAX)" in src
+    assert "const int cluster = saturate ? static_cast<int>(split) : 1;" in src
+    assert "(static_cast<long long>(K) + k_per_split - 1) / k_per_split" in src
+    decl = src[src.index('extern "C" int q115_matmul_launch('):]
+    params = decl[:decl.index(")")].count(",") + 1
+    assert params == len(_build.SIGNATURES["q115_matmul"][1]) == 10
+
+
+@pytest.mark.parametrize("shape,saturate", [((200, 4096, 512), False),
+                                            ((128, 512, 128), True),
+                                            ((37, 1000, 65), False),
+                                            ((16, 4096, 8), True)])
+def test_q115_split_sums_in_any_order_equal_the_reference(shape, saturate):
+    """The kernel's arithmetic in numpy: each K split's partial of rounded
+    products wraps to int32, the partials add in a shuffled order (the
+    atomics' or the cluster's), and only the whole sum saturates."""
+    M, K, N = shape
+    rng = np.random.default_rng(M + K + N)
+    x = rng.integers(-(2**15), 2**15, (M, K)).astype(np.int16)
+    w = rng.integers(-(2**15), 2**15, (K, N)).astype(np.int16)
+    x[0], w[:, 0] = -(2**15), -(2**15)
+    geo = q115_mod.plan(M, K, N, saturate)
+    prods = (x.astype(np.int64)[:, :, None] * w.astype(np.int64)[None] + 2**14) >> 15
+    parts = [prods[:, k0:k0 + geo.k_per_split].sum(1)
+             for k0 in range(0, K, geo.k_per_split)]
+    assert len(parts) == geo.split
+    total = np.zeros((M, N), np.int64)
+    for i in rng.permutation(len(parts)):
+        total = (total + parts[i] + 2**31) % 2**32 - 2**31  # int32 wrap
+    if saturate:
+        total = np.clip(total, -(2**15), 2**15 - 1)
+    fn = ref_kernels.q115_matmul_ref if saturate else ref_kernels.q115_matmul_acc_ref
+    want = np.asarray(fn(jnp.asarray(x), jnp.asarray(w)))
+    np.testing.assert_array_equal(total, want)
+
+
+# --------------------------------------------------- lif_fused launcher
+def test_lif_launcher_takes_the_wrapper_arguments_as_the_source_declares():
+    """The wrapper's CTA size and argument count agree with
+    ``csrc/lif_fused.cu``: one warp a CTA, so the hardware path's 4,096
+    neurons spread over 128 CTAs."""
+    src = (_build.CSRC / "lif_fused.cu").read_text()
+    assert f"#define LIF_THREADS {lif_mod.THREADS} " in src
+    assert lif_mod.THREADS == 32 and -(-8 * 512 // lif_mod.THREADS) == 128
+    decl = src[src.index('extern "C" int lif_fused_launch('):]
+    params = decl[:decl.index(")")].count(",") + 1
+    assert params == len(_build.SIGNATURES["lif_fused"][1]) == 12

@@ -13,8 +13,11 @@ import torch
 
 from repro_torch.core import neuron, snn
 from repro_torch.events import runtime
+from repro_torch.kernels import _build
 from repro_torch.kernels import aer_matmul as aer_mod
+from repro_torch.kernels import lif_fused as lif_mod
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import q115_matmul as q115_mod
 from repro_torch.kernels import snn_chunk as chunk_mod
 
 CASES = ["zero", "subtract", "refractory", "lapicque", "q115", "frozen",
@@ -474,3 +477,165 @@ def test_new_kernels_reject_what_they_cannot_take(cuda_device):
         ops.aer_spike_matmul(a, v, w16.cpu())
     with pytest.raises(ValueError, match=r"\(E,\)"):
         ops.aer_spike_matmul(a[None], v[None], w16)
+
+
+# ------------------------------------------ q115_matmul: split-K and edges
+def _q115_case(kind, M, K, N, dev):
+    rng = np.random.default_rng(M * 31 + K + N)
+    x = rng.integers(-(2**15), 2**15, (M, K)).astype(np.int16)
+    w = rng.integers(-(2**15), 2**15, (K, N)).astype(np.int16)
+    if kind == "extremes":  # the extreme codes, whose square is 2^30
+        x[rng.random((M, K)) < 0.3] = -(2**15)
+        w[rng.random((K, N)) < 0.3] = -(2**15)
+        w[rng.random((K, N)) < 0.2] = 2**15 - 1
+    return torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saturate", [True, False])
+@pytest.mark.parametrize("kind,shape", [
+    ("random", (1, 512, 128)),  # M = 1
+    ("random", (128, 512, 1)),  # N = 1
+    ("random", (1, 1, 1)),
+    ("random", (37, 33, 129)),  # K past a 32-k slab, K and N not 8-aligned
+    ("random", (64, 1000, 65)),  # K not a multiple of the slab
+    ("random", (200, 4100, 512)),  # the large shape with K past whole slabs
+    ("random", (5, 0, 7)),  # K = 0: zeros
+    ("extremes", (130, 4096, 128)),
+    ("extremes", (200, 4096, 512)),
+])
+def test_q115_kernel_edges_on_card(cuda_device, kind, shape, saturate):
+    x, w = _q115_case(kind, *shape, cuda_device)
+    got = _launched(ops.q115_matmul, x, w, saturate=saturate)
+    plain = ref.q115_matmul_ref if saturate else ref.q115_matmul_acc_ref
+    assert torch.equal(got, plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saturate", [True, False])
+def test_q115_kernel_sums_wrap_int32_on_card(cuda_device, saturate):
+    """2^16 + 8 maximal rounded products, (2^30 + 2^14) >> 15 = 2^15 each,
+    sum to 2^31 + 2^18, which wraps to -2^31 + 2^18 over many K splits."""
+    K = 2**16 + 8
+    x = torch.full((3, K), -(2**15), dtype=torch.int16, device=cuda_device)
+    w = torch.full((K, 9), -(2**15), dtype=torch.int16, device=cuda_device)
+    assert q115_mod.plan(3, K, 9, saturate).split > 1
+    got = _launched(ops.q115_matmul, x, w, saturate=saturate)
+    want = -(2**31) + 2**18
+    assert int(ref.q115_matmul_acc_ref(x, w)[0, 0]) == want
+    assert (got == (-(2**15) if saturate else want)).all()
+
+
+@pytest.mark.cuda
+def test_q115_kernel_saturates_only_the_whole_sum_on_card(cuda_device):
+    """Partials of the K splits leave int16 while the whole sum does not,
+    and partials inside int16 add up to a sum that saturates."""
+    d, M, K, N = cuda_device, 4, 512, 8
+    geo = q115_mod.plan(M, K, N, saturate=True)
+    assert geo.split > 1 and geo.cluster == geo.split
+    # rows 0-1: every rounded product +32766 in the first half of K, -32767
+    # in the second: each split's partial leaves int16, the sum is -256
+    x = torch.full((M, K), 2**15 - 1, dtype=torch.int16, device=d)
+    w = torch.full((K, N), 2**15 - 1, dtype=torch.int16, device=d)
+    w[K // 2:] = -(2**15)
+    # rows 2-3: every product 128, 8,192 a split of 64, 65,536 in all
+    x[2:] = 2048
+    w16 = torch.full((K, N), 2048, dtype=torch.int16, device=d)
+    raw = ref.q115_matmul_acc_ref(x, w)
+    part = ref.q115_matmul_acc_ref(x[:, :geo.k_per_split], w[:geo.k_per_split])
+    assert int(raw[0, 0]) == -256 and int(part[0, 0]) > 2**15
+    got = _launched(ops.q115_matmul, x, w)
+    assert torch.equal(got, ref.q115_matmul_ref(x, w))
+    assert int(got[0, 0]) == -256
+    got16 = _launched(ops.q115_matmul, x[2:], w16)
+    assert int(ref.q115_matmul_acc_ref(x[2:, :geo.k_per_split],
+                                       w16[:geo.k_per_split])[0, 0]) < 2**15
+    assert (got16 == 2**15 - 1).all()
+
+
+# ------------------------------------------- lif_fused: both input forms
+def _lif_case(T, B, N, dev, seed):
+    rng = np.random.default_rng(seed)
+    cur = rng.normal(0.3, 0.7, (T, B, N)).astype(np.float32)
+    acc = rng.integers(-(2**15), 2**16, (T, B, N)).astype(np.int32)
+    bias = rng.integers(-(2**15), 2**15, N).astype(np.int32)
+    beta = rng.uniform(0.5, 0.99, N).astype(np.float32)
+    thr = rng.uniform(0.5, 1.5, N).astype(np.float32)
+    cur[0, 0, 0] = np.inf  # propagates through the reset multiply
+    acc[0, 0, 0], bias[0] = 2**31 - 5, 2**15 - 1  # the bias add wraps
+    acc[-1, -1, -1] = 2**24 + 1  # rounds in the conversion
+    return [torch.from_numpy(a).to(dev) for a in (cur, acc, bias, beta, thr)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 25, 100])
+@pytest.mark.parametrize("form", ["float", "int32"])
+@pytest.mark.parametrize("refractory", [0, 5])
+@pytest.mark.parametrize("reset", ["zero", "subtract"])
+def test_lif_kernel_forms_over_time_blocks_on_card(cuda_device, T, form,
+                                                   refractory, reset):
+    """T = 100 walks four blocks of the kernel's 32 steps in registers."""
+    B, N = (8, 512) if T == 25 else (3, 130)
+    cur, acc, bias, beta, thr = _lif_case(T, B, N, cuda_device, T + B)
+    kw = dict(refractory_steps=refractory, reset=reset)
+    if form == "float":
+        fn, plain, args = ops.lif_fused, ref.lif_fused_ref, (cur, beta, thr)
+    else:
+        fn, plain = lif_mod.lif_fused_from_acc, lif_mod.lif_fused_from_acc_ref
+        args = (acc, bias, beta, thr)
+    before = lif_mod.lif_fused.launches
+    spk, u = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert lif_mod.lif_fused.launches == before + 1  # either form counts
+    r_spk, r_u = plain(*args, **kw)
+    assert torch.equal(spk, r_spk)
+    assert torch.equal(u.isnan(), r_u.isnan())
+    assert torch.equal(u.nan_to_num(), r_u.nan_to_num())
+
+
+@pytest.mark.cuda
+def test_lif_kernel_int32_form_wraps_the_bias_add_on_card(cuda_device):
+    d = cuda_device
+    acc = torch.tensor([[[2**31 - 1, -(2**31), 2**24 + 1, 2**30]]],
+                       dtype=torch.int32, device=d).repeat(3, 1, 1)
+    bias = torch.tensor([1, -1, 0, 2**15 - 1], dtype=torch.int32, device=d)
+    beta, thr = torch.full((4,), 0.9, device=d), torch.ones(4, device=d)
+    spk, u = lif_mod.lif_fused_from_acc(acc, bias, beta, thr)
+    r_spk, r_u = lif_mod.lif_fused_from_acc_ref(acc, bias, beta, thr)
+    assert torch.equal(spk, r_spk) and torch.equal(u, r_u)
+    # 2^31 - 1 + 1 wraps to -2^31, a current of -65536: no spike
+    assert not spk[:, 0, 0].any() and spk[:, 0, 3].all()
+
+
+# ------------------------------------------------------------ no fallback
+@pytest.mark.cuda
+@pytest.mark.parametrize("broken", ["q115_matmul", "spike_matmul", "lif_fused"])
+def test_api_raises_when_a_kernel_cannot_build_or_launch_on_card(
+        cuda_device, monkeypatch, broken):
+    d = cuda_device
+    x = torch.ones(4, 8, dtype=torch.int16, device=d)
+    spikes = torch.ones(3, 2, 8, device=d)
+    w, b = torch.full((8, 4), 0.1, device=d), torch.zeros(4, device=d)
+    beta, thr = torch.full((4,), 0.9, device=d), torch.ones(4, device=d)
+
+    def call():
+        if broken == "q115_matmul":
+            return ops.q115_matmul(x, x.T.contiguous())
+        return ops.snn_layer_forward(spikes, w, b, beta, thr)
+
+    real = _build.load
+
+    def no_build(name):
+        if name == broken:
+            raise RuntimeError(f"nvcc failed for {name}.cu")
+        return real(name)
+
+    def failing_launch(name):
+        return (lambda *args: 700) if name == broken else real(name)
+
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        call()
+    monkeypatch.setattr(_build, "load", failing_launch)
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error 700"):
+        call()

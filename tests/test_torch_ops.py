@@ -17,6 +17,7 @@ from repro.core import snn as ref_snn
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_kernels
 from repro_torch.core import coding, quant, snn
+from repro_torch.kernels import lif_fused as lif_mod
 from repro_torch.kernels import ops, ref
 
 RNG = np.random.default_rng(31)
@@ -219,6 +220,103 @@ def test_snn_layer_forward_matches_reference(refractory):
         assert h.shape == (10, 4, (64, 2)[i]) and h.dtype == torch.float32
         np.testing.assert_array_equal(h.numpy(), np.asarray(r))
         assert h.any()
+
+
+def _wrap_layer():
+    """A layer whose adder tree reaches +-2^31 - 2 at (t, b) = (0, 0): 516
+    spikes of 127 and one of 6 (the int8 spike multiplies) on weight codes
+    +-32767, so the int32 bias add wraps (codes 32767 and -32768); a column
+    of code 1000 whose sum 65,538,001 passes 2^24 and rounds to nearest
+    even in the conversion; other rows are binary spike trains."""
+    rng = np.random.default_rng(41)
+    T, B, K, N = 3, 2, 517, 5
+    x = (rng.random((T, B, K)) < 0.3).astype(np.float32)
+    x[0, 0, :516], x[0, 0, 516] = 127.0, 6.0
+    w = rng.uniform(-0.01, 0.01, (K, N)).astype(np.float32)
+    w[:, 0], w[:, 1], w[:, 2] = 32767 / 32768, 1000 / 32768, -32767 / 32768
+    b = np.float32([32767, 1, -32768, 300, -500]) / np.float32(32768)
+    beta = rng.uniform(0.6, 0.95, N).astype(np.float32)
+    thr = rng.uniform(0.4, 1.1, N).astype(np.float32)
+    return x, w, b, beta, thr
+
+
+@pytest.mark.parametrize("refractory", [0, 5])
+def test_lif_fused_from_acc_matches_reference_at_the_wrap(refractory):
+    """The int32 form of the LIF kernel's plain version, held against the
+    reference's hardware path (Pallas in interpret mode): spikes exact
+    through ``snn_layer_forward``, and spikes exact and membranes within
+    1e-5 from the adder tree's sums, where the bias add wraps and the
+    conversion rounds."""
+    x, w, b, beta, thr = _wrap_layer()
+    T, B, K = x.shape
+    got = ops.snn_layer_forward(t(x), t(w), t(b), t(beta), t(thr),
+                                refractory_steps=refractory)
+    want = ref_ops.snn_layer_forward(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(b), jnp.asarray(beta),
+                                     jnp.asarray(thr),
+                                     refractory_steps=refractory)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got[0, 0, 2] == 1 and got[0, 0, 0] == 0  # the wrapped sums
+
+    wq = np.asarray(ref_quant.quantize(jnp.asarray(w), ref_quant.Q1_15))
+    bq = np.asarray(ref_quant.quantize(jnp.asarray(b), ref_quant.Q1_15)).astype(np.int32)
+    acc = np.asarray(ref_ops.spike_matmul(
+        jnp.asarray(x.reshape(T * B, K).astype(np.int8)), jnp.asarray(wq)))
+    assert acc[0, 0] == 2**31 - 2 and acc[0, 2] == -(2**31) + 2
+    assert acc[0, 1] + bq[1] == 65_538_001
+    cur = (jnp.asarray(acc) + jnp.asarray(bq)[None]).astype(jnp.float32)
+    cur = (cur / ref_quant.Q1_15.scale).reshape(T, B, -1)
+    r_spk, r_u = ref_ops.lif_fused(cur, jnp.asarray(beta), jnp.asarray(thr),
+                                   refractory_steps=refractory)
+    spk, u = lif_mod.lif_fused_from_acc(
+        t(acc.reshape(T, B, -1)), t(bq), t(beta), t(thr),
+        refractory_steps=refractory)
+    assert float(np.asarray(cur)[0, 0, 1]) == 65_538_000 / 32768
+    np.testing.assert_array_equal(spk.numpy(), np.asarray(r_spk))
+    np.testing.assert_allclose(u.numpy(), np.asarray(r_u), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("reset", ["zero", "subtract"])
+def test_lif_fused_from_acc_plain_version_is_the_three_ops(reset):
+    """On the CPU the int32 form runs its plain version: the int32 bias add
+    (wrapping), the conversion and the divide by 2^15, then
+    ``lif_fused_ref``; it launches nothing."""
+    rng = np.random.default_rng(7)
+    acc = rng.integers(-(2**31), 2**31, (6, 3, 9), dtype=np.int64).astype(np.int32)
+    bias = rng.integers(-(2**15), 2**15, 9).astype(np.int32)
+    acc[0, 0, 0], bias[0] = 2**31 - 1, 5
+    beta = rng.uniform(0.5, 0.99, 9).astype(np.float32)
+    thr = rng.uniform(0.5, 1.5, 9).astype(np.float32)
+    kw = dict(refractory_steps=3, reset=reset)
+    before = ops.lif_fused.launches
+    spk, u = lif_mod.lif_fused_from_acc(t(acc), t(bias), t(beta), t(thr), **kw)
+    assert ops.lif_fused.launches == before
+    cur = (t(acc) + t(bias)[None, None]).to(torch.float32) / 2**15
+    # the add wrapped to -2^31 + 4, which float32 rounds to -2^31
+    assert float(cur[0, 0, 0]) == -65536.0
+    r_spk, r_u = ref.lif_fused_ref(cur, t(beta), t(thr), **kw)
+    assert torch.equal(spk, r_spk) and torch.equal(u, r_u)
+
+
+def test_snn_layer_forward_feeds_the_lif_kernel_the_adder_tree_sums(monkeypatch):
+    """A layer is spike_matmul and one LIF launch: the int32 sums go
+    straight to ``lif_fused_from_acc`` with the int32 bias codes, and no
+    float currents are made between them."""
+    seen = []
+
+    def record(acc, bias_q, beta, threshold, **kw):
+        seen.append((acc.dtype, tuple(acc.shape), bias_q.dtype))
+        return lif_mod.lif_fused_from_acc_ref(acc, bias_q, beta, threshold, **kw)
+
+    def no_float_form(*args, **kw):
+        raise AssertionError("the float LIF form ran in snn_layer_forward")
+
+    monkeypatch.setattr(ops, "lif_fused_from_acc", record)
+    monkeypatch.setattr(ops, "lif_fused", no_float_form)
+    x, w, b, beta, thr = _wrap_layer()
+    out = ops.snn_layer_forward(t(x), t(w), t(b), t(beta), t(thr))
+    assert seen == [(torch.int32, (3, 2, 5), torch.int32)]
+    assert out.shape == (3, 2, 5)
 
 
 def test_snn_layer_forward_equals_fake_quant_float_graph():
