@@ -17,9 +17,18 @@ Phases, in order; any failure exits non-zero:
    block), times the kernel (device time) and its plain version, and computes the kernel's bound from this run's inputs.
 4. Main path: ``SNNStreamEngine`` on the card with ``backend="fused"``
    serves 32 image requests and 16 spike-train requests with ragged
-   windows.  Checks every result, checks that the kernel launched once per
-   dispatched tick, and checks that an engine forced onto the plain
-   version gives identical results for the spike requests.
+   windows, each tick a replay of one captured CUDA graph of the chunk.
+   Checks every result; checks that launches a replay x replays equals
+   the dispatched ticks, one eager warm-up launch a capture, and no
+   steady-state re-capture; prints ms/tick, req/s and ``tick_breakdown``
+   beside the same run on the eager engine (``cuda_graph=False``), which
+   must give identical results; checks that an engine forced onto the
+   plain version gives identical results for the spike requests; runs
+   one steady tick under ``torch.cuda.set_sync_debug_mode("error")``
+   (one stats read, no device allocation); prints
+   ``dispatch_attribution`` of the chunk as a graph replay and eagerly;
+   and profiles both engines (the card's busy share, and the profiler's
+   count of kernel records as a second witness of the launches).
 5. Kernel against plain version: ``aer_spike_matmul_batched`` on the card
    at the training shapes (B = 32; layer 0, K = 4096, N = 512, on a dense
    early DVS step and a sparse late one; layer 1, K = 512, N = 2), float32
@@ -413,13 +422,90 @@ def phase_kernel(torch, dev, params_np, card):
             "evaluate": out["evaluate"]}
 
 
+def graph_of(torch, fn, *args):
+    """``fn(*args)`` captured as a CUDA graph (after a warm-up call on a
+    side stream); returns the graph's ``replay``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(*args)
+    return graph.replay
+
+
+def steady_tick(torch, eng, reqs):
+    """One steady mid-window tick (no admission, no request finishing)
+    of a graph engine under ``torch.cuda.set_sync_debug_mode("error")``:
+    fails on any implicit synchronisation.  The tick's one wait, the
+    stats event in ``_retire``, is an explicit ``Event.synchronize`` and
+    is not exempted.  Also counts the tick's device allocations (from the
+    caching allocator's statistics) and its host reads (``_fetch``)."""
+    for r in reqs:
+        eng.submit(r)
+    eng.poll()  # admission, the capture, chunk 1
+    eng.poll()  # chunk 2, retires chunk 1
+    torch.cuda.synchronize()
+    fetches = []
+    real_fetch = eng._fetch
+
+    def counting_fetch(host, ready):
+        fetches.append(host.data_ptr())
+        return real_fetch(host, ready)
+
+    eng._fetch = counting_fetch
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    buffers = [eng._stats.data_ptr()] + [h.data_ptr() for h in eng._host_stats]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.poll()  # chunk 3, retires chunk 2
+    except RuntimeError as err:
+        fail(f"a steady tick synchronised implicitly: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    del eng._fetch
+    if len(fetches) != 1 or allocs != 0 or buffers != (
+            [eng._stats.data_ptr()] + [h.data_ptr() for h in eng._host_stats]):
+        fail(f"steady tick: {len(fetches)} stats reads, {allocs} device "
+             f"allocations, buffers moved: {buffers}")
+    eng.drain()
+    return len(fetches), allocs
+
+
+def where_host_time_goes(name, eng, wall):
+    """Split a serving run's wall time by the engine's own spans: the
+    ticks (``host_prep`` + ``dispatch`` + ``stats_fetch``), admission
+    (``stage``: upload, rate encoding, packing into the ring), and the
+    rest (submit's checks, ``_finalize``, the scheduler, sampling)."""
+    spans = eng.trace.spans()
+
+    def durations(kind):
+        return sorted(x.t1 - x.t0 for x in spans if x.name == kind)
+
+    disp = durations("dispatch")
+    ticks = sum(sum(durations(k)) for k in ("host_prep", "dispatch",
+                                             "stats_fetch"))
+    stage = durations("stage")
+    print(f"main path ({name}): wall {wall * 1e3:.1f} ms = ticks "
+          f"{ticks * 1e3:.1f} ms (dispatch median "
+          f"{disp[len(disp) // 2] * 1e6:.1f} us, longest "
+          f"{disp[-1] * 1e3:.2f} ms) + admission {sum(stage) * 1e3:.1f} ms "
+          f"({len(stage)} stagings, median {stage[len(stage) // 2] * 1e6:.0f}"
+          f" us) + the rest {(wall - ticks - sum(stage)) * 1e3:.1f} ms")
+
+
 def phase_main(torch, dev, params_np, card):
-    """Phase 4: the serving engine on the card, through the kernel."""
+    """Phase 4: the serving engine on the card, its tick a CUDA graph
+    replay through the kernel."""
     import numpy as np
 
     from repro_torch.configs.collision_snn import CONFIG
     from repro_torch.core import snn
     from repro_torch.kernels import snn_chunk as chunk_mod
+    from repro_torch.obs import dispatch_attribution
     from repro_torch.serving.snn_engine import SNNStreamEngine, StreamRequest
 
     params = snn.params_from_numpy(params_np, dev)
@@ -436,23 +522,38 @@ def phase_main(torch, dev, params_np, card):
         for x, T in zip(px, steps)
     ]
 
-    def engine(backend):
+    def engine(backend, **kw):
         return SNNStreamEngine(params, CONFIG, num_slots=SLOTS,
-                               chunk_steps=TC, backend=backend, device=dev)
+                               chunk_steps=TC, backend=backend, device=dev,
+                               **kw)
 
-    engine("fused").run(spike_reqs[:2])  # warm-up: allocator, first launch
+    engine("fused").run(spike_reqs[:2])  # warm-up: allocator, build, capture
     torch.cuda.synchronize()
+
+    def serve(eng):
+        chunk_mod.snn_chunk.launches = 0
+        chunk_mod.snn_chunk.captured = 0
+        t0 = time.perf_counter()
+        results = eng.run(img_reqs + spike_reqs)
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0, chunk_mod.snn_chunk.launches
 
     eng = engine("fused")
-    chunk_mod.snn_chunk.launches = 0
-    t0 = time.perf_counter()
-    results = eng.run(img_reqs + spike_reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = chunk_mod.snn_chunk.launches
-    if launches == 0 or launches != eng.dispatched_ticks:
-        fail(f"snn_chunk launched {launches} times over "
-             f"{eng.dispatched_ticks} dispatched ticks")
+    results, wall, eager = serve(eng)
+    per = eng.graph_launches_per_replay
+    if not eng.graphed or eng.graph_captures < 1 or per != 1:
+        fail(f"the engine did not run its tick as a graph: graphed "
+             f"{eng.graphed}, captures {eng.graph_captures}, kernel "
+             f"launches a replay {per}")
+    if per * eng.graph_replays != eng.dispatched_ticks:
+        fail(f"{per} snn_chunk launch(es) a replay x {eng.graph_replays} "
+             f"replays != {eng.dispatched_ticks} dispatched ticks")
+    if eager != eng.graph_captures:
+        fail(f"{eager} eager snn_chunk launches for {eng.graph_captures} "
+             f"capture(s): one warm-up launch a capture expected")
+    if eng.steady_state_recompiles():
+        fail(f"{eng.steady_state_recompiles()} steady-state re-captures")
+    launches = eager + per * eng.graph_replays
     for r, req in zip(results, img_reqs + spike_reqs):
         T = req.num_steps or CONFIG.num_steps
         if r.disposition != "ok" or r.steps != T:
@@ -463,16 +564,44 @@ def phase_main(torch, dev, params_np, card):
         if not (np.isfinite(r.energy_pj) and r.energy_pj > 0):
             fail(f"request {r.request_id}: energy {r.energy_pj}")
     events = float(sum(r.events_per_layer.sum() for r in results))
-    print(f"main path: {len(results)} requests ok in {wall:.3f} s over "
-          f"{eng.dispatched_ticks} ticks, snn_chunk launches {launches} | "
-          f"{len(results) / wall:.1f} req/s | {events / wall:.0f} events/s | "
+    tb = eng.tick_breakdown()
+    print(f"main path (graph): {len(results)} requests ok in {wall:.3f} s "
+          f"over {eng.dispatched_ticks} ticks = {eng.graph_replays} graph "
+          f"replays x {per} snn_chunk launch + {eager} warm-up launch(es) | "
+          f"captures {eng.graph_captures}, steady-state re-captures "
+          f"{eng.steady_state_recompiles()} | {len(results) / wall:.1f} req/s "
+          f"| {events / wall:.0f} events/s | "
           f"{wall / eng.dispatched_ticks * 1e3:.3f} ms/tick | on {card}")
+    print(f"main path (graph): tick_breakdown {json.dumps(tb)}")
+    where_host_time_goes("graph", eng, wall)
+
+    base = engine("fused", cuda_graph=False)
+    base_results, base_wall, base_launches = serve(base)
+    print(f"main path (eager): {len(base_results)} requests in "
+          f"{base_wall:.3f} s over {base.dispatched_ticks} ticks, "
+          f"{base_launches} snn_chunk launches | "
+          f"{len(base_results) / base_wall:.1f} req/s | "
+          f"{base_wall / base.dispatched_ticks * 1e3:.3f} ms/tick | on {card}")
+    print(f"main path (eager): tick_breakdown "
+          f"{json.dumps(base.tick_breakdown())}")
+    where_host_time_goes("eager", base, base_wall)
+    spread = {"graph": [], "eager": []}
+    for name in ("eager", "graph", "graph", "eager", "eager", "graph"):
+        e = engine("fused", cuda_graph=name == "graph")
+        w = serve(e)[1]
+        spread[name].append(round(w / e.dispatched_ticks * 1e3, 3))
+    print(f"main path: ms/tick, three more runs each, in turns: "
+          f"{json.dumps(spread)} | on {card}")
 
     def fields(r):  # every field but the clocks and the request id
         return (r.prediction, r.steps, r.spike_rate, r.energy_pj,
                 r.spike_counts.tolist(), r.events_per_layer.tolist(),
                 r.disposition, r.fault, r.deadline_s, r.deadline_missed)
 
+    if [fields(r) for r in results] != [fields(r) for r in base_results]:
+        fail("the graph engine differs from the eager engine")
+    print(f"main path: the graph engine equals the eager engine on all "
+          f"{len(results)} requests")
     fused = [fields(r) for r in results[len(img_reqs):]]
     plain = [fields(r) for r in engine("fused_ref").run(spike_reqs)]
     if fused != plain:
@@ -486,15 +615,38 @@ def phase_main(torch, dev, params_np, card):
     print(f"main path: backend='torch' agrees on {same}/{len(ref)} spike "
           f"requests in every field, {same_pred}/{len(ref)} in prediction "
           f"(its layer-0 sums run in another order; not gated)")
-    profile_main(torch, engine("fused"), img_reqs + spike_reqs, card)
+
+    reads, allocs = steady_tick(torch, engine("fused"), img_reqs[:SLOTS])
+    print(f"main path: one steady tick passed set_sync_debug_mode('error') "
+          f"with {reads} stats read and {allocs} device allocations")
+
+    twin_args = eng.staged_chunk_args(
+        [np.asarray(r.spikes) for r in spike_reqs[:SLOTS]])
+    twin = eng.chunk_for_timing()
+    att = {
+        "graph": dispatch_attribution(graph_of(torch, twin, *twin_args),
+                                      device=dev, iters=21),
+        "eager": dispatch_attribution(twin, *twin_args, device=dev, iters=21),
+    }
+    for name, a in att.items():
+        print(f"dispatch_attribution[{name}]: host enqueue "
+              f"{a['host_enqueue_us']:.1f} us | device wait "
+              f"{a['device_wait_us']:.1f} us | total {a['total_us']:.1f} us "
+              f"| device (CUDA events) {a['device_us']:.1f} us | "
+              f"{a['verdict']} | on {card}")
+    busy = {name: profile_main(torch, engine("fused", cuda_graph=graphed),
+                               img_reqs + spike_reqs, card, name)
+            for name, graphed in (("graph", True), ("eager", False))}
     return {"launches": launches, "wall_s": wall,
-            "ticks": eng.dispatched_ticks}
+            "ticks": eng.dispatched_ticks, "busy": busy}
 
 
-def profile_main(torch, eng, reqs, card):
+def profile_main(torch, eng, reqs, card, name):
     """The main path once more under torch.profiler: device time by
-    kernel and the device's busy share of the traced wall time (not
-    gated; the profiler slows the host side, so this wall is longer)."""
+    kernel and the device's busy share of the traced wall time (the
+    profiler slows the host side, so this wall is longer).  For a graph
+    engine, also the profiler's count of ``snn_chunk_kernel`` records, a
+    second witness of the launches (one a replay, one a warm-up)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -506,14 +658,26 @@ def profile_main(torch, eng, reqs, card):
     device_us = device_time_us(torch, prof)
     busy_ms = sum(device_us.values()) / 1e3
     if busy_ms == 0:
-        print("profile: the profiler recorded no device time: not measured")
-        return
+        print(f"profile[{name}]: the profiler recorded no device time: not "
+              f"measured")
+        return None
+    records = sum(ev.count for ev in prof.key_averages()
+                  if "snn_chunk_kernel" in ev.key
+                  and ev.device_type == torch.autograd.DeviceType.CUDA)
+    expected = (eng.graph_replays + eng.graph_captures if eng.graphed
+                else eng.dispatched_ticks)
+    # a profiler run can lose a record or two (PERF.md, section 7)
+    if not expected - 2 <= records <= expected:
+        fail(f"profile[{name}]: {records} snn_chunk_kernel records for "
+             f"{expected} launches")
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile: traced wall {wall_ms:.1f} ms over {eng.dispatched_ticks} "
-          f"ticks | device busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) | "
-          f"on {card}")
-    for name, us in top:
-        print(f"profile:   {us / 1e3:8.3f} ms  {name[:90]}")
+    print(f"profile[{name}]: traced wall {wall_ms:.1f} ms over "
+          f"{eng.dispatched_ticks} ticks | device busy {busy_ms:.1f} ms "
+          f"({busy_ms / wall_ms:.1%}) | snn_chunk_kernel records {records} "
+          f"of {expected} launches | on {card}")
+    for kname, us in top:
+        print(f"profile[{name}]:   {us / 1e3:8.3f} ms  {kname[:90]}")
+    return busy_ms / wall_ms
 
 
 def train_config():

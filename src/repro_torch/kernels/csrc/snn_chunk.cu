@@ -419,9 +419,18 @@ template <typename AddrT, typename ValT>
 static cudaError_t launch(const ChunkParams& p, int threads, int smem,
                           cudaStream_t stream) {
   auto kernel = snn_chunk_kernel<AddrT, ValT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+  // Raise the kernel's dynamic shared-memory limit at the first launch that
+  // needs more, not before every launch: a launch recorded into a CUDA graph
+  // then makes no call but the launch itself (the serving engine runs each
+  // shape once eagerly before it captures it).
+  static int smem_set = 0;
+  cudaError_t err;
+  if (smem > smem_set) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.batch * SNN_CLUSTER);
   cfg.blockDim = dim3(threads);

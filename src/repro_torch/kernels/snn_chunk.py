@@ -4,7 +4,10 @@
 slots.  On a CUDA tensor it launches the hand-written Hopper kernel
 ``csrc/snn_chunk.cu`` (built at first use; one thread-block cluster per
 slot, laid out by ``plan``) or raises; on a CPU tensor it runs
-``snn_chunk_ref``, the plain PyTorch version.  The plain version sums
+``snn_chunk_ref``, the plain PyTorch version.  The wrapper reads nothing
+back from the card and makes no call but the launch once a shape has run,
+so a CUDA graph can capture it (``snn_chunk.captured`` counts such
+launches, ``snn_chunk.launches`` the eager ones).  The plain version sums
 in the kernel's order, sequentially over events for layer 0 and over k
 for hidden layers, so on the card the two agree value for value.
 
@@ -212,7 +215,10 @@ def snn_chunk(
     )
     if rc != 0:
         raise RuntimeError(f"snn_chunk kernel launch failed: CUDA error {rc}")
-    snn_chunk.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        snn_chunk.captured += 1  # recorded into a graph: runs at each replay
+    else:
+        snn_chunk.launches += 1
     offs = [sum(widths[1 : i + 1]) for i in range(L + 1)]
     u_out = tuple(u_fin[:, offs[i] : offs[i + 1]] for i in range(L))
     r_out = tuple(r_fin[:, offs[i] : offs[i + 1]] for i in range(L))
@@ -220,6 +226,10 @@ def snn_chunk(
 
 
 snn_chunk.launches = 0  # kernel launches since the last reset
+# launches recorded into CUDA graphs being captured since the last reset; a
+# graph launches each of them once per replay (the serving engine counts
+# its replays)
+snn_chunk.captured = 0
 
 
 def snn_chunk_ref(

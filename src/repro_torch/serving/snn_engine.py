@@ -1,5 +1,6 @@
 """Streaming SNN serving engine on PyTorch: device-resident event rings,
-EDF admission, one-deep pipelined ticks.
+EDF admission, a tick replayed as one CUDA graph over static buffers,
+pipelined stats, and the reference engine's instruments.
 
 The core of ``repro.serving.snn_engine.SNNStreamEngine``:
 
@@ -8,21 +9,42 @@ The core of ``repro.serving.snn_engine.SNNStreamEngine``:
   (priority desc, earliest deadline first, FIFO).  ``poll`` fills free
   slots, advances every active slot by one chunk and returns what
   finished.
-- **Device-resident staging.**  Admission uploads a request once: an image
-  is rate-encoded on the device, and the train is packed on the device
-  into a per-step event table (int16 addresses, int8 values) in the slot's
-  ring, padded by ``Tc`` steps so a chunk's slice never leaves the ring.
-- **The chunk.**  Each tick indexes every slot's next ``Tc`` steps out of
-  its ring at the on-device ``done`` offset, masks steps past the window,
-  runs ``runtime.run_chunk_events`` (the ``snn_chunk`` kernel with
-  ``backend="fused"``), sets the per-slot fault bitmask, sanitizes faulted
-  slots and sums per-slot stats, all on the device with no host read.
-- **Pipelined stats.**  A chunk's stats are copied to pinned host memory
-  behind a CUDA event as soon as they are computed; with
-  ``pipeline_depth=1`` the next chunk is dispatched before they are read.
-  Ticks that finish a request's window retire eagerly.
+- **Device-resident staging.**  Admission uploads a request once, through
+  the slot's pinned staging buffer: an image is rate-encoded on the
+  device, and the train is packed on the device into a per-step event
+  table (int16 addresses, int8 values) in the slot's ring, padded by
+  ``Tc`` steps so a chunk's slice never leaves the ring.
+- **Static buffers.**  Every input and output of the chunk (per-layer
+  membrane and refractory state, the scheduling metadata ``done`` /
+  ``total`` / ``admit`` / ``fault``, the rings and the stats vector) is
+  allocated once and updated in place; only ``_grow_ring`` allocates
+  again.  This is the port's form of the reference's jitted chunk with
+  donated state and metadata: a steady tick uploads nothing.
+- **The chunk as a CUDA graph.**  On the card with ``backend="fused"``
+  each tick replays one captured ``torch.cuda.CUDAGraph`` of ``_chunk``
+  (ring slice at the on-device ``done`` offsets, window mask, the
+  ``snn_chunk`` kernel, fault bitmask, sanitizing, per-slot stats),
+  captured at the first dispatch after a warm-up on copies, one graph per
+  ring size.  Only ring growth re-captures; any other capture counts in
+  ``engine.tick.recompiles`` (``steady_state_recompiles()``).  A failed
+  capture or replay raises; the engine never runs the eager chunk in its
+  place.  ``backend="torch"`` and ``"fused_ref"`` (the plain versions,
+  for checking) and the CPU run the same in-place chunk eagerly.
+- **Pipelined stats.**  A chunk's stats are copied behind a CUDA event
+  into one of ``pipeline_depth + 1`` pinned host buffers allocated once;
+  with ``pipeline_depth=1`` the next chunk is dispatched before they are
+  read.  A steady tick makes exactly one device-to-host read, in
+  ``_fetch``.  Ticks that finish a request's window retire eagerly.
 - **Measured energy.**  A request's energy is priced from the events it
   generated (``core.energy.snn_ops_from_events``).
+- **Observability.**  ``engine.metrics`` (a ``MetricsRegistry``) holds the
+  reference engine's instruments under the reference's names: episode
+  counters, request histograms, tick-phase histograms
+  (``engine.tick.host_prep_s`` / ``dispatch_s`` / ``stats_fetch_s``) and
+  the fault, shedding and preemption counters (the last read 0 until the
+  port gains those planes).  ``engine.trace`` records a span per request
+  lifecycle stage and per tick phase; ``engine.timeseries`` samples the
+  registry per tick and per submit; ``health()`` judges the SLOs over it.
 
 Entry points run on the card: ``device=None`` means ``cuda`` and raises
 when no GPU is present; pass ``device="cpu"`` explicitly to run on the CPU.
@@ -42,6 +64,8 @@ import torch
 from repro_torch.core import coding, energy, neuron, snn
 from repro_torch.events import aer, runtime
 from repro_torch.events import capacity as cap_mod
+from repro_torch.obs import MetricsRegistry, TimeSeriesSampler, TraceRecorder
+from repro_torch.obs import slo as slo_mod
 
 # chunk fault bitmask (device-side detection -> host quarantine codes)
 FAULT_NONFINITE_STATE = 1
@@ -73,11 +97,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 class EngineStallError(RuntimeError):
-    """``drain(timeout_s=...)`` expired with the engine not idle;
-    ``results`` holds whatever completed before the stall."""
+    """``drain(timeout_s=...)`` expired with the engine not idle.
 
-    def __init__(self, message: str, results):
+    ``snapshot`` is the per-slot diagnostic state at expiry
+    (``SNNStreamEngine.stall_snapshot()``); ``results`` holds whatever
+    completed before the stall.
+    """
+
+    def __init__(self, message: str, snapshot: Dict, results):
         super().__init__(message)
+        self.snapshot = snapshot
         self.results = list(results)
 
 
@@ -120,7 +149,13 @@ class StreamResult:
 
 class SNNStreamEngine:
     """EDF scheduler over device-resident event rings and the chunk
-    runtime."""
+    runtime.
+
+    ``cuda_graph=False`` runs the fused chunk eagerly on the card, launch
+    by launch, as the measurement baseline beside the graph; it changes
+    nothing on the CPU or for the plain-version backends, which always
+    run eagerly.
+    """
 
     def __init__(
         self,
@@ -133,6 +168,10 @@ class SNNStreamEngine:
         backend: str = "auto",
         capacities: Optional[Sequence[int]] = None,
         pipeline_depth: int = 1,
+        trace_capacity: int = 8192,
+        timeseries_capacity: int = 4096,
+        slos: Optional[Sequence] = None,
+        cuda_graph: bool = True,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -148,6 +187,10 @@ class SNNStreamEngine:
         self.capacities = (
             tuple(int(c) for c in capacities) if capacities is not None else None
         )
+        self.slos = (
+            tuple(slos) if slos is not None else slo_mod.default_slos()
+        )
+        self._make_instruments(trace_capacity, timeseries_capacity)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self.params = {
@@ -162,17 +205,235 @@ class SNNStreamEngine:
         self._step_ids = torch.arange(chunk_steps, device=self.device)
         self._slot_ids = torch.arange(num_slots, device=self.device)
         self._lane_ids = torch.arange(self.C, device=self.device)
+        # the tick as a CUDA graph: fused kernel on the card only
+        self.graphed = (
+            bool(cuda_graph) and self.device.type == "cuda"
+            and backend == "fused"
+        )
+        self.graph_captures = 0  # lifetime captures
+        self.graph_replays = 0  # lifetime replays (one per graphed tick)
+        self.graph_launches_per_replay = 0  # kernel launches in the graph
+        # capture-site allowlist: the cold-start capture; _grow_ring bumps
+        # it (a new ring is new graph inputs)
+        self._captures_expected = 1
+        self._captures_accounted = 0
         self._reset_all()
+
+    # ----------------------------------------------------- observability
+    def _make_instruments(
+        self, trace_capacity: int, timeseries_capacity: int
+    ) -> None:
+        """The metrics registry, span recorder and windowed time-series
+        sampler, with the reference engine's instrument names.
+
+        Episode-scoped counters live under ``engine.episode.`` and reset
+        when an episode opens (first submit on an idle engine); request
+        and tick-phase histograms are engine-lifetime (``reset_tick_stats``
+        zeroes the latter).  The sampler captures a registry delta on
+        every tick and every admission, the signal ``health()`` evaluates
+        the SLOs against.  The shed, park, demotion, retry, injection,
+        snapshot and preemption instruments are registered so a snapshot
+        reads the reference's keys; nothing in the port moves them yet.
+        """
+        self.metrics = MetricsRegistry()
+        self.trace = TraceRecorder(capacity=trace_capacity)
+        m = self.metrics
+        # episode-scoped (reset at _begin_episode)
+        self._m_events = m.counter("engine.episode.events")
+        self._m_steps = m.counter("engine.episode.steps")
+        self._m_completed = m.counter("engine.episode.completed")
+        self._m_misses = m.counter("engine.episode.deadline_misses")
+        self._m_wall = m.gauge("engine.episode.wall_s")
+        # engine-lifetime request instruments
+        self._m_submitted = m.counter("engine.requests.submitted")
+        self._m_finished = m.counter("engine.requests.completed")
+        self._m_missed_total = m.counter("engine.requests.deadline_missed")
+        self._m_latency = m.histogram(
+            "engine.request.latency_s", lo=1e-6, hi=1e3
+        )
+        self._m_qwait = m.histogram(
+            "engine.request.queue_wait_s", lo=1e-6, hi=1e3
+        )
+        self._m_energy = m.histogram(
+            "engine.request.energy_pj", lo=1.0, hi=1e12
+        )
+        # tick-phase timing (reset via reset_tick_stats)
+        self._m_prep = m.histogram("engine.tick.host_prep_s", lo=1e-7, hi=10.0)
+        self._m_dispatch = m.histogram(
+            "engine.tick.dispatch_s", lo=1e-7, hi=10.0
+        )
+        self._m_fetch = m.histogram(
+            "engine.tick.stats_fetch_s", lo=1e-7, hi=10.0
+        )
+        self._m_qdepth = m.gauge("engine.queue.depth")
+        self._m_active = m.gauge("engine.slots.active")
+        # fault-tolerance instruments
+        self._m_shed = m.counter("engine.requests.shed")
+        self._m_parked_total = m.counter("engine.requests.parked")
+        self._m_quarantined = m.counter("engine.requests.quarantined")
+        self._m_retries = m.counter("engine.faults.chunk_retries")
+        self._m_demoted = m.counter("engine.faults.backend_demoted")
+        self._m_injected = m.counter("engine.faults.injected")
+        # steady-state re-captures: graph captures beyond the allowlisted
+        # sites (cold start, ring growth); any increment means a dispatch
+        # path that is not static
+        self._m_recompiles = m.counter("engine.tick.recompiles")
+        self._m_q_events = m.counter("engine.episode.quarantined_events")
+        self._m_q_steps = m.counter("engine.episode.quarantined_steps")
+        self._m_parked_depth = m.gauge("engine.queue.parked")
+        # crash-safety + preemption plane
+        self._m_snap_time = m.histogram(
+            "engine.snapshot.save_s", lo=1e-6, hi=100.0
+        )
+        self._m_restore_snap_time = m.histogram(
+            "engine.snapshot.restore_s", lo=1e-6, hi=100.0
+        )
+        self._m_ckpt_fallback = m.counter("engine.faults.checkpoint_fallback")
+        self._m_preempt_parked = m.counter("engine.preempt.parked")
+        self._m_preempt_resumed = m.counter("engine.preempt.resumed")
+        self._m_preempt_events = m.counter("engine.preempt.parked_events")
+        self._m_preempt_depth = m.gauge("engine.preempt.buffer_depth")
+        self._m_park_time = m.histogram(
+            "engine.preempt.park_s", lo=1e-7, hi=10.0
+        )
+        self._m_restore_time = m.histogram(
+            "engine.preempt.restore_s", lo=1e-7, hi=10.0
+        )
+        # SLO verdict gauge (0 healthy / 1 degraded / 2 breach)
+        self._m_health = m.gauge("engine.slo.status")
+        self.timeseries = TimeSeriesSampler(
+            self.metrics,
+            capacity=timeseries_capacity,
+            track_buckets=("engine.request.latency_s",),
+        )
+
+    def metrics_snapshot(self) -> Dict[str, Dict]:
+        """JSON-able snapshot of every engine instrument."""
+        return self.metrics.snapshot()
+
+    def export_trace(self, path) -> None:
+        """Write the recorded spans as Chrome trace-event JSON
+        (Perfetto-loadable)."""
+        self.trace.write(path)
+
+    def health(self) -> Dict:
+        """Evaluate the engine's SLOs (multi-window burn rates over the
+        time-series sampler) and publish the verdict as the
+        ``engine.slo.status`` gauge.  ``status`` is ``healthy`` /
+        ``degraded`` / ``breach``; ``slos`` carries per-SLO windowed error
+        rates and per-rule burn rates; ``diagnosis`` says why."""
+        report = slo_mod.evaluate(self.slos, self.timeseries)
+        self._m_health.set(report["status_code"])
+        report["diagnosis"] = self._diagnose(report)
+        return report
+
+    def _diagnose(self, report: Dict) -> Dict:
+        """Separate *why* the SLO verdict is what it is: ``faulty``
+        (quarantines, demotions or retries happened), ``overloaded`` (SLOs
+        unhappy while the admission plane sheds), ``breaching`` (SLOs
+        unhappy with no shedding and no faults) or ``nominal``."""
+        quarantined = self._m_quarantined.value
+        demoted = self._m_demoted.value
+        retries = self._m_retries.value
+        shed = self._m_shed.value
+        recompiles = int(self._m_recompiles.value)
+        window = self.timeseries.ratio(
+            "engine.requests.shed", "engine.requests.submitted", 10.0
+        )
+        unhappy = report["status"] != "healthy"
+        if quarantined > 0 or demoted > 0 or retries > 0:
+            verdict = "faulty"
+            hint = (
+                "fault path active (quarantines/demotions/retries): "
+                "inspect fault_events and engine.faults.* counters "
+                "before scaling anything"
+            )
+        elif unhappy and shed > 0:
+            verdict = "overloaded"
+            hint = (
+                "SLO pressure with active load shedding: the admission "
+                "plane is degrading correctly — add capacity (slots/"
+                "hosts) or lower the offered rate"
+            )
+        elif unhappy:
+            verdict = "breaching"
+            hint = (
+                "SLO pressure with no shedding and no faults: deadlines "
+                "exceed serving capacity — enable an AdmissionPolicy or "
+                "relax deadline targets"
+            )
+        else:
+            verdict = "nominal"
+            hint = "no action needed"
+        if recompiles > 0:
+            hint += (
+                "; WARNING: steady-state chunk re-captures observed "
+                f"({recompiles}) — a dispatch path is not static (every "
+                "capture stalls serving for a device sync)"
+            )
+        park_rate = self.timeseries.rate("engine.preempt.parked", 10.0)
+        done_rate = self.timeseries.rate("engine.requests.completed", 10.0)
+        thrash = park_rate > 0.0 and park_rate > done_rate
+        if thrash:
+            hint += (
+                "; preempt_thrash: park/restore rate exceeds the "
+                "completion rate"
+            )
+        return {
+            "verdict": verdict,
+            "hint": hint,
+            "recompiling": recompiles > 0,
+            "steady_state_recompiles": recompiles,
+            "shed_total": shed,
+            "windowed_shed_rate": window,
+            "parked_depth": 0,
+            "preempt_thrash": thrash,
+            "preempt_parked_depth": 0,
+            "preempt_park_rate": park_rate,
+            "quarantined_total": quarantined,
+            "backend_demotions": demoted,
+            "chunk_retries": retries,
+            "backend": self.backend,
+        }
+
+    def windowed_miss_rate(self, window_s: Optional[float] = 1.0) -> float:
+        """Deadline-miss fraction of completions over the trailing window
+        (whole series when ``window_s`` is None)."""
+        return self.timeseries.ratio(
+            "engine.requests.deadline_missed",
+            "engine.requests.completed",
+            window_s,
+        )
 
     # ------------------------------------------------------------- state
     def _reset_all(self) -> None:
         cfg, S, dev = self.cfg, self.S, self.device
+        NL, L = cfg.layer_sizes[-1], cfg.num_layers
+        # the chunk's static buffers: written in place by every tick
         self._states = runtime.init_states(cfg, S, device=dev)
-        self._ring = self._alloc_ring(self._ring_steps)
         self._meta = {
             k: torch.zeros((S,), dtype=torch.int32, device=dev)
             for k in ("done", "total", "admit", "fault")
         }
+        self._stats = torch.zeros(
+            (2 * S * NL + S * L + S,), dtype=torch.float32, device=dev
+        )
+        self._ring = self._alloc_ring(self._ring_steps)
+        self._alloc_staging()
+        # stats land in one of pipeline_depth + 1 host buffers, each
+        # reused only after its chunk retired; pinned on the card, behind
+        # one event each
+        on_card = dev.type == "cuda"
+        self._host_stats = [
+            torch.zeros(self._stats.shape, dtype=torch.float32,
+                        pin_memory=on_card)
+            for _ in range(self.pipeline_depth + 1)
+        ]
+        self._host_ready = [
+            torch.cuda.Event() if on_card else None for _ in self._host_stats
+        ]
+        self._host_next = 0
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._slot_req: List[Optional[int]] = [None] * S
         self._slot_done = np.zeros(S, np.int64)  # steps dispatched
         self._slot_retired = np.zeros(S, np.int64)  # steps stats-retired
@@ -181,28 +442,51 @@ class SNNStreamEngine:
         self._slot_admit_t = np.zeros(S, np.float64)
         self._slot_deadline: List[Optional[float]] = [None] * S
         self._slot_rel_deadline: List[Optional[float]] = [None] * S
-        self._slot_counts = np.zeros((S, cfg.layer_sizes[-1]), np.float64)
-        self._slot_memsum = np.zeros((S, cfg.layer_sizes[-1]), np.float64)
-        self._slot_events = np.zeros((S, cfg.num_layers), np.float64)
-        # one-deep stats pipeline: (host stats, ready event, take, rids)
+        self._slot_counts = np.zeros((S, NL), np.float64)
+        self._slot_memsum = np.zeros((S, NL), np.float64)
+        self._slot_events = np.zeros((S, L), np.float64)
+        # stats pipeline: (host stats, ready event, take, rids)
         self._inflight: "collections.deque[Tuple]" = collections.deque()
         self._queue: List[tuple] = []  # heap: (key, rid, req, t_sub, dl)
         self._pending_results: List[StreamResult] = []
         self.fault_events: List[Dict] = []
+        self._tick_index = 0
         self._seq = 0
         self._next_rid = 0
         self._episode_open = False
         self._episode_t0 = 0.0
         self.dispatched_ticks = 0  # lifetime chunk dispatches
-        self._reset_episode_counters()
+        self.metrics.reset(prefix="engine.episode.")
+        self.metrics.reset(prefix="engine.tick.")
 
-    def _reset_episode_counters(self) -> None:
-        self.total_events = 0.0
-        self.total_steps = 0
-        self.completed = 0
-        self.deadline_misses = 0
-        self.wall_s = 0.0
-        self._quarantined_events = 0.0
+    def _begin_episode(self, now: float) -> None:
+        # throughput and deadline counters are per episode: an episode
+        # opens at the first submit on an idle engine and closes when the
+        # last queued request drains
+        self.metrics.reset(prefix="engine.episode.")
+        self._episode_t0 = now
+        self._episode_open = True
+
+    # episode counters read straight from the registry
+    @property
+    def total_events(self) -> float:
+        return self._m_events.value
+
+    @property
+    def total_steps(self) -> int:
+        return int(self._m_steps.value)
+
+    @property
+    def completed(self) -> int:
+        return int(self._m_completed.value)
+
+    @property
+    def deadline_misses(self) -> int:
+        return int(self._m_misses.value)
+
+    @property
+    def wall_s(self) -> float:
+        return self._m_wall.value
 
     def _alloc_ring(self, ring_steps: int) -> Dict[str, torch.Tensor]:
         # Tc steps of zero padding keep every chunk slice inside the ring
@@ -215,14 +499,34 @@ class SNNStreamEngine:
             "counts": torch.zeros((S, R), dtype=torch.int32, device=dev),
         }
 
+    def _alloc_staging(self) -> None:
+        """Admission's pinned staging, one buffer a slot sized for the
+        ring's longest train, allocated once per ring size (the card
+        only; the CPU uploads nothing)."""
+        if self.device.type != "cuda":
+            self._pinned: List[torch.Tensor] = []
+            self._pinned_ready: List[torch.cuda.Event] = []
+            return
+        n = self._ring_steps * self.cfg.layer_sizes[0]
+        self._pinned = [
+            torch.empty((n,), dtype=torch.float32, pin_memory=True)
+            for _ in range(self.S)
+        ]
+        self._pinned_ready = [torch.cuda.Event() for _ in range(self.S)]
+
     def _grow_ring(self, T: int) -> None:
         """Grow the rings to hold a T-step train; other slots' staged
-        trains survive."""
+        trains survive.  The new ring is a new graph input: the only
+        allowed re-capture site."""
         old, r_old = self._ring, self._ring_steps + self.Tc
         self._ring_steps = int(T)
         self._ring = self._alloc_ring(self._ring_steps)
         for k, buf in self._ring.items():
             buf[:, :r_old] = old[k]
+        self._alloc_staging()
+        if self.graphed:
+            self._graph = None
+            self._captures_expected += 1
 
     # --------------------------------------------------------- admission
     def _resolve_steps(self, req: StreamRequest) -> int:
@@ -265,12 +569,11 @@ class SNNStreamEngine:
             raise ValueError("StreamRequest needs image or spikes")
         now = time.perf_counter()
         if not self._episode_open:
-            self._reset_episode_counters()
-            self._episode_t0 = now
-            self._episode_open = True
+            self._begin_episode(now)
         rid = self._next_rid
         self._next_rid += 1
         dl = now + req.deadline_s if req.deadline_s is not None else None
+        self._m_submitted.inc()
         key = (
             -int(req.priority),
             0 if dl is not None else 1,  # deadline-less requests last
@@ -279,15 +582,30 @@ class SNNStreamEngine:
         )
         self._seq += 1
         heapq.heappush(self._queue, (key, rid, req, now, dl))
+        self._m_qdepth.set(len(self._queue))
+        self.trace.instant(
+            "submit", now, track="queue",
+            args={"rid": rid, "priority": req.priority},
+        )
+        self.timeseries.sample()
         return rid
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """One host->device copy of a float32 array; from pinned memory
-        on the card, so it does not wait for chunks in flight."""
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+    def _upload(self, s: int, arr: np.ndarray) -> torch.Tensor:
+        """One host->device copy of a float32 array.  On the card it goes
+        through slot ``s``'s pinned staging buffer, so it does not wait
+        for chunks in flight; the buffer is refilled only after its
+        previous copy's event."""
+        a = np.asarray(arr, dtype=np.float32)
+        if self.device.type != "cuda":
+            return torch.from_numpy(a.copy())
+        ready = self._pinned_ready[s]
+        ready.synchronize()  # the previous copy out of this buffer is done
+        host = self._pinned[s][: a.size].view(a.shape)
+        host.numpy()[...] = a
+        out = torch.empty(a.shape, dtype=torch.float32, device=self.device)
+        out.copy_(host, non_blocking=True)
+        ready.record()
+        return out
 
     def _admit(
         self,
@@ -300,34 +618,45 @@ class SNNStreamEngine:
         T = self._resolve_steps(req)
         if T > self._ring_steps:
             self._grow_ring(T)
+        t_stage = time.perf_counter()
         if req.spikes is not None:
-            train = self._upload(req.spikes)
+            train = self._upload(s, req.spikes)
         else:
-            train = coding.rate_encode(self._gen, self._upload(req.image), T)
-        self._stage(s, train)
+            train = coding.rate_encode(self._gen, self._upload(s, req.image), T)
+        self._stage(self._ring, self._meta, s, train)
         self._slot_req[s] = rid
         self._slot_done[s] = 0
         self._slot_retired[s] = 0
         self._slot_total[s] = T
         self._slot_submit_t[s] = t_submit
         self._slot_admit_t[s] = time.perf_counter()
+        # lifecycle spans: queued (submit -> stage start) on the queue
+        # track, then the staging upload on the winning slot's track
+        self.trace.span(
+            "queue", t_submit, t_stage, track="queue",
+            args={"rid": rid, "priority": req.priority},
+        )
+        self.trace.span(
+            "stage", t_stage, self._slot_admit_t[s], track=f"slot{s}",
+            args={"rid": rid, "steps": T},
+        )
+        self._m_qwait.record(self._slot_admit_t[s] - t_submit)
         self._slot_deadline[s] = abs_deadline
         self._slot_rel_deadline[s] = req.deadline_s
         self._slot_counts[s] = 0.0
         self._slot_memsum[s] = 0.0
         self._slot_events[s] = 0.0
 
-    def _stage(self, s: int, train: torch.Tensor) -> None:
-        """Pack ``train`` (T, K) into slot ``s``'s ring and reset its
-        device metadata, without a host read."""
+    def _stage(self, ring, meta, s: int, train: torch.Tensor) -> None:
+        """Pack ``train`` (T, K) into slot ``s`` of ``ring`` and reset its
+        metadata in ``meta``, in place and without a host read."""
         T = train.shape[0]
         table = runtime.encode_step_table(
             train, self.C, addr_dtype=self._addr_dtype
         )
-        self._ring["addrs"][s, :T] = table.addrs
-        self._ring["values"][s, :T] = table.values
-        self._ring["counts"][s, :T] = table.counts
-        meta = self._meta
+        ring["addrs"][s, :T] = table.addrs
+        ring["values"][s, :T] = table.values
+        ring["counts"][s, :T] = table.counts
         meta["done"][s] = 0
         meta["total"][s] = T
         meta["admit"][s] = 1
@@ -337,16 +666,19 @@ class SNNStreamEngine:
         meta["fault"][s] = over.to(torch.int32) * FAULT_CAPACITY_OVERFLOW
 
     # ------------------------------------------------------------- chunk
-    def _chunk(self, states, meta):
-        """One tick on the device: returns (new_states, new_meta, stats)."""
+    def _chunk(self, prepared, states, ring, meta, stats) -> None:
+        """One tick on the device, in place: reads ``ring`` and the
+        incoming ``states``/``meta``, then writes the new states, the new
+        metadata and the per-slot stats into ``states``, ``meta`` and
+        ``stats`` with ``copy_``, after every read of them.  Makes no
+        host read, so a CUDA graph can capture it."""
         cfg, Tc, C = self.cfg, self.Tc, self.C
-        ring = self._ring
         done, total, admit = meta["done"], meta["total"], meta["admit"]
         take = torch.clamp(total - done, 0, Tc)
         act = (take > 0).to(torch.float32)
         # slots admitted since the previous chunk start from zero state
         fresh = admit[:, None] > 0
-        states = [
+        incoming = [
             neuron.NeuronState(
                 u=torch.where(fresh, 0.0, st.u),
                 refrac=torch.where(fresh, 0, st.refrac),
@@ -365,7 +697,7 @@ class SNNStreamEngine:
         values = torch.where(in_window[:, :, None], v_c, 0)
         counts = torch.where(in_window, c_c, 0)
         new_states, out_mem, out_spikes, events = runtime.run_chunk_events(
-            self._prepared, states, a_c, values, counts, cfg,
+            prepared, incoming, a_c, values, counts, cfg,
             active=act, capacities=self.capacities, prepared=True,
             backend=self.backend, layout="slot_major",
         )
@@ -392,57 +724,108 @@ class SNNStreamEngine:
             | (bad_count | bad_addr).to(torch.int32) * FAULT_RING_CORRUPT
         )
         poisoned = (fault > 0)[:, None]
-        new_states = [
-            neuron.NeuronState(
-                u=torch.where(poisoned, 0.0, st.u),
-                refrac=torch.where(poisoned, 0, st.refrac),
-            )
-            for st in new_states
-        ]
         # per-slot stats over the request's own steps only
         m = (self._step_ids[:, None] < take[None, :]).to(torch.float32)
-        stats = torch.cat([
+        torch.cat([
             torch.sum(out_spikes * m[:, :, None], dim=0).flatten(),
             torch.sum(out_mem * m[:, :, None], dim=0).flatten(),
             torch.sum(events * m[:, None, :], dim=0).T.flatten(),
             fault.to(torch.float32),
-        ])
-        new_meta = {
-            "done": done + take,
-            "total": total,
-            "admit": torch.zeros_like(admit),
-            # staged fault bits report exactly once, then clear
-            "fault": torch.zeros_like(fault),
-        }
-        return new_states, new_meta, stats
+        ], out=stats)
+        # the writes, after every read of the buffers they overwrite
+        for st, new in zip(states, new_states):
+            st.u.copy_(torch.where(poisoned, 0.0, new.u))
+            st.refrac.copy_(torch.where(poisoned, 0, new.refrac))
+        meta["done"].add_(take)
+        meta["admit"].zero_()
+        # staged fault bits report exactly once, then clear
+        meta["fault"].zero_()
+
+    def _capture(self) -> None:
+        """Capture ``_chunk`` over the static buffers into a CUDA graph.
+
+        A warm-up call on copies runs first on a side stream, as
+        ``torch.cuda.graph`` requires: it builds the kernel, raises its
+        shared-memory limit and fills the plan cache, and leaves the
+        engine's buffers untouched (capture records work, runs none).
+        Raises if the capture fails; nothing runs eagerly instead."""
+        from repro_torch.kernels import snn_chunk as chunk_mod
+
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.chunk_for_timing()(
+                self._prepared, self._states, self._ring, self._meta
+            )
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = chunk_mod.snn_chunk.captured
+        with torch.cuda.graph(graph):
+            self._chunk(
+                self._prepared, self._states, self._ring, self._meta,
+                self._stats,
+            )
+        self.graph_launches_per_replay = chunk_mod.snn_chunk.captured - before
+        self._graph = graph
+        self.graph_captures += 1
+        self._note_captures()
+
+    def _note_captures(self) -> None:
+        """Fold captures beyond the allowlisted sites (cold start, ring
+        growth) into the ``engine.tick.recompiles`` counter."""
+        extra = self.graph_captures - self._captures_expected
+        if extra > self._captures_accounted:
+            self._m_recompiles.inc(extra - self._captures_accounted)
+            self._captures_accounted = extra
+
+    def steady_state_recompiles(self) -> int:
+        """Chunk re-captures beyond the known capture sites (lifetime);
+        nonzero means some dispatch path is not static."""
+        return int(self._m_recompiles.value)
 
     def _dispatch_chunk(self, take: np.ndarray) -> None:
-        self._states, self._meta, stats = self._chunk(self._states, self._meta)
-        ready = None
-        if self.device.type == "cuda":
-            # start the stats' trip to the host now, so reading them later
-            # waits for this chunk only, not for chunks dispatched after it
-            host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
-            host.copy_(stats, non_blocking=True)
-            ready = torch.cuda.Event()
+        if self.graphed:
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            self.graph_replays += 1
+        else:
+            self._chunk(
+                self._prepared, self._states, self._ring, self._meta,
+                self._stats,
+            )
+        # start the stats' trip to the host now, so reading them later
+        # waits for this chunk only, not for chunks dispatched after it
+        i = self._host_next
+        self._host_next = (i + 1) % len(self._host_stats)
+        host, ready = self._host_stats[i], self._host_ready[i]
+        host.copy_(self._stats, non_blocking=ready is not None)
+        if ready is not None:
             ready.record()
-            stats = host
-        self._inflight.append((stats, ready, take.copy(), list(self._slot_req)))
+        self._inflight.append((host, ready, take.copy(), list(self._slot_req)))
         self.dispatched_ticks += 1
 
     # -------------------------------------------------------------- tick
     def _tick(self) -> List[int]:
         """Dispatch the next chunk (if any slot has steps left) and retire
-        pipelined stats; returns the slots whose requests finished."""
+        pipelined stats; returns the slots whose requests finished.
+
+        A steady mid-window tick uploads nothing, allocates nothing on the
+        card or in pinned memory, and reads the host once (``_fetch``)."""
         S, Tc = self.S, self.Tc
+        self._tick_index += 1
+        t0 = time.perf_counter()
         take = np.zeros(S, np.int32)
         for s in range(S):
             if self._slot_req[s] is not None:
                 take[s] = min(Tc, int(self._slot_total[s] - self._slot_done[s]))
         dispatched = bool(take.sum() > 0)
+        t1 = time.perf_counter()
         if dispatched:
             self._dispatch_chunk(take)
             self._slot_done += take
+        t2 = time.perf_counter()
         # keep at most pipeline_depth chunks in flight; retire one anyway
         # when nothing was dispatched, and drain eagerly when a request's
         # final chunk is in flight
@@ -459,15 +842,40 @@ class SNNStreamEngine:
         ):
             force = 0
             finished.extend(self._retire())
+        t3 = time.perf_counter()
+        # tick-phase instruments: exact sums for tick_breakdown, tails,
+        # and spans that show stalls and pipeline bubbles on a timeline
+        self._m_prep.record(t1 - t0)
+        self._m_dispatch.record(t2 - t1)
+        self._m_fetch.record(t3 - t2)
+        self._m_active.set(sum(r is not None for r in self._slot_req))
+        self.trace.span("host_prep", t0, t1, track="tick")
+        if dispatched:
+            self.trace.span(
+                "dispatch", t1, t2, track="tick",
+                args={"steps": int(take.sum())},
+            )
+            for s in range(S):
+                if take[s] > 0:
+                    self.trace.span(
+                        "chunk", t1, t2, track=f"slot{s}",
+                        args={"rid": self._slot_req[s], "steps": int(take[s])},
+                    )
+        self.trace.span("stats_fetch", t2, t3, track="tick")
         return finished
+
+    def _fetch(self, host: torch.Tensor, ready) -> np.ndarray:
+        """The tick's single device-to-host read: wait for the chunk's
+        stats copy (its event, on the card) and view them."""
+        if ready is not None:
+            ready.synchronize()
+        return host.numpy()
 
     def _retire(self) -> List[int]:
         """Read the oldest in-flight chunk's stats and fold them into the
         per-slot accumulators."""
-        stats, ready, take, rids = self._inflight.popleft()
-        if ready is not None:
-            ready.synchronize()
-        flat = stats.numpy()
+        host, ready, take, rids = self._inflight.popleft()
+        flat = self._fetch(host, ready)
         S, NL, L = self.S, self.cfg.layer_sizes[-1], self.cfg.num_layers
         counts = flat[: S * NL].reshape(S, NL)
         memsum = flat[S * NL : 2 * S * NL].reshape(S, NL)
@@ -486,8 +894,8 @@ class SNNStreamEngine:
             self._slot_memsum[s] += memsum[s]
             self._slot_events[s] += events[s]
             self._slot_retired[s] += int(take[s])
-            self.total_events += float(events[s].sum())
-            self.total_steps += int(take[s])
+            self._m_events.inc(float(events[s].sum()))
+            self._m_steps.inc(int(take[s]))
             if self._slot_retired[s] >= self._slot_total[s]:
                 finished.append(s)
         return finished
@@ -498,9 +906,16 @@ class SNNStreamEngine:
         rid = self._slot_req[s]
         names = fault_code_names(code)
         now = time.perf_counter()
-        self._quarantined_events += float(self._slot_events[s].sum())
-        self.fault_events.append(
-            {"slot": s, "rid": rid, "code": code, "fault": names}
+        self._m_q_events.inc(float(self._slot_events[s].sum()))
+        self._m_q_steps.inc(float(self._slot_retired[s]))
+        self._m_quarantined.inc()
+        self.fault_events.append({
+            "tick": self._tick_index, "slot": s, "rid": rid, "code": code,
+            "fault": names,
+        })
+        self.trace.instant(
+            "quarantine", now, track=f"slot{s}",
+            args={"rid": rid, "fault": names},
         )
         self._pending_results.append(StreamResult(
             request_id=rid,
@@ -531,15 +946,29 @@ class SNNStreamEngine:
         finish_t = time.perf_counter()
         dl = self._slot_deadline[s]
         missed = dl is not None and finish_t > dl
-        self.completed += 1
+        self._m_completed.inc()
+        self._m_finished.inc()
         if missed:
-            self.deadline_misses += 1
+            self._m_misses.inc()
+            self._m_missed_total.inc()
+        latency_s = finish_t - self._slot_submit_t[s]
+        self._m_latency.record(latency_s)
+        self._m_energy.record(oc.energy_pj())
+        self.trace.instant(
+            "complete", finish_t, track=f"slot{s}",
+            args={
+                "rid": self._slot_req[s],
+                "latency_ms": latency_s * 1e3,
+                "energy_pj": oc.energy_pj(),
+                "deadline_missed": bool(missed),
+            },
+        )
         res = StreamResult(
             request_id=self._slot_req[s],
             prediction=pred,
             spike_counts=counts.copy(),
             steps=T,
-            latency_s=finish_t - self._slot_submit_t[s],
+            latency_s=latency_s,
             queue_wait_s=self._slot_admit_t[s] - self._slot_submit_t[s],
             events_per_layer=ev,
             spike_rate=float(ev[0] / (T * cfg.layer_sizes[0])),
@@ -561,11 +990,6 @@ class SNNStreamEngine:
             and not self._pending_results
         )
 
-    def _close_episode_if_idle(self) -> None:
-        if self.idle() and self._episode_open:
-            self.wall_s = time.perf_counter() - self._episode_t0
-            self._episode_open = False
-
     def poll(self) -> List[StreamResult]:
         """One scheduler round: admit queued requests into free slots,
         dispatch the next chunk, retire pipelined stats, and return the
@@ -574,20 +998,30 @@ class SNNStreamEngine:
             if self._slot_req[s] is None and self._queue:
                 _, rid, req, t_sub, dl = heapq.heappop(self._queue)
                 self._admit(s, rid, req, t_sub, dl)
+        self._m_qdepth.set(len(self._queue))
         if all(r is None for r in self._slot_req) and not self._inflight:
             results, self._pending_results = self._pending_results, []
-            self._close_episode_if_idle()
+            if results and self.idle() and self._episode_open:
+                self._m_wall.set(time.perf_counter() - self._episode_t0)
+                self._episode_open = False
+            if results:
+                self.timeseries.sample()
             return results
         results = [self._finalize(s) for s in self._tick()]
         if self._pending_results:
             results = self._pending_results + results
             self._pending_results = []
-        self._close_episode_if_idle()
+        if self.idle() and self._episode_open:
+            self._m_wall.set(time.perf_counter() - self._episode_t0)
+            self._episode_open = False
+        # one time-series point per tick, after completions land
+        self.timeseries.sample()
         return results
 
     def drain(self, timeout_s: Optional[float] = None) -> List[StreamResult]:
         """Poll until idle; returns results in completion order.  Raises
-        ``EngineStallError`` if ``timeout_s`` expires first."""
+        ``EngineStallError`` with a per-slot ``stall_snapshot()`` if
+        ``timeout_s`` expires first."""
         results: List[StreamResult] = []
         t0 = time.perf_counter()
         while not self.idle():
@@ -597,14 +1031,50 @@ class SNNStreamEngine:
                 and time.perf_counter() - t0 > timeout_s
                 and not self.idle()
             ):
+                snap = self.stall_snapshot()
+                stuck = [
+                    d["slot"] for d in snap["slots"] if d["rid"] is not None
+                ]
                 raise EngineStallError(
-                    f"drain() timed out after {timeout_s}s with the engine "
-                    f"not idle: queue={len(self._queue)} "
-                    f"inflight={len(self._inflight)} "
-                    f"slots={self._slot_req}",
+                    f"drain() timed out after {timeout_s}s with the "
+                    f"engine not idle: queue={snap['queue_depth']} "
+                    f"parked={snap['parked_depth']} "
+                    f"preempt_parked={snap['preempt_parked_depth']} "
+                    f"inflight={snap['inflight']} "
+                    f"stuck_slots={stuck}",
+                    snap,
                     results,
                 )
         return results
+
+    def stall_snapshot(self) -> Dict:
+        """Diagnostic view of everything that could be blocking progress:
+        per-slot occupancy (request id, steps dispatched / retired /
+        total, deadline), queue depth, in-flight stats chunks and the tick
+        index.  The parked lists are empty: the port does not park yet."""
+        return {
+            "tick": self._tick_index,
+            "queue_depth": len(self._queue),
+            "parked_depth": 0,
+            "parked_rids": [],
+            "preempt_parked_depth": 0,
+            "preempt_parked": [],
+            "inflight": len(self._inflight),
+            "pending_results": len(self._pending_results),
+            "backend": self.backend,
+            "slots": [
+                {
+                    "slot": s,
+                    "rid": self._slot_req[s],
+                    "done": int(self._slot_done[s]),
+                    "retired": int(self._slot_retired[s]),
+                    "total": int(self._slot_total[s]),
+                    "deadline_s": self._slot_rel_deadline[s],
+                    "parked": False,
+                }
+                for s in range(self.S)
+            ],
+        }
 
     def run(self, requests: List[StreamRequest]) -> List[StreamResult]:
         """Serve all requests; results sorted by request id."""
@@ -622,10 +1092,78 @@ class SNNStreamEngine:
             denom = time.perf_counter() - self._episode_t0
         else:
             denom = self.wall_s
-        ev = self.total_events - self._quarantined_events
+        ev = self.total_events - self._m_q_events.value
         return max(ev, 0.0) / max(denom, 1e-9)
 
     def deadline_miss_rate(self) -> float:
         """Fraction of this episode's ok completions that missed their
         deadline (requests without a deadline count as met)."""
         return self.deadline_misses / max(self.completed, 1)
+
+    def reset_tick_stats(self) -> None:
+        """Zero the tick-phase instruments (e.g. after a warm-up episode,
+        so ``tick_breakdown`` reflects steady state, not the first tick's
+        kernel build and graph capture)."""
+        self.metrics.reset(prefix="engine.tick.")
+
+    def tick_breakdown(self) -> Dict[str, float]:
+        """Engine-lifetime mean per-tick timing from the ``engine.tick.*``
+        histograms' exact sums.
+
+        ``host_prep_us`` is host scheduling work.  ``dispatch_us`` is the
+        time spent issuing the chunk: a graph replay and the stats copy's
+        enqueue on the card (the card runs it asynchronously), the whole
+        eager chunk on the CPU.  ``stats_fetch_us`` is the blocking stats
+        retirement (any remaining device wait, the single D2H read, and
+        folding)."""
+        n = max(self._m_prep.count, 1)
+        return {
+            "ticks": self._m_prep.count,
+            "pipeline_depth": self.pipeline_depth,
+            "host_prep_us": self._m_prep.sum / n * 1e6,
+            "dispatch_us": self._m_dispatch.sum / n * 1e6,
+            "stats_fetch_us": self._m_fetch.sum / n * 1e6,
+            "dispatch_p99_us": self._m_dispatch.percentile(99) * 1e6,
+        }
+
+    # -------------------------------------------------------- benchmarks
+    def staged_chunk_args(self, trains: Sequence[np.ndarray]):
+        """Stage ``trains`` (one per slot, (T, K) each) into fresh state,
+        ring and metadata buffers and return ``(prepared, states, ring,
+        meta)``, the arguments of ``chunk_for_timing()``.  Measures the
+        resident chunk as the tick loop runs it, without touching the
+        live engine."""
+        if len(trains) != self.S:
+            raise ValueError(f"need {self.S} trains, got {len(trains)}")
+        dev = self.device
+        states = runtime.init_states(self.cfg, self.S, device=dev)
+        ring = self._alloc_ring(
+            max(self._ring_steps, max(t.shape[0] for t in trains))
+        )
+        meta = {
+            k: torch.zeros((self.S,), dtype=torch.int32, device=dev)
+            for k in ("done", "total", "admit", "fault")
+        }
+        for s, t in enumerate(trains):
+            train = torch.from_numpy(np.asarray(t, np.float32)).to(dev)
+            self._stage(ring, meta, s, train)
+        meta["admit"].zero_()
+        return self._prepared, states, ring, meta
+
+    def chunk_for_timing(self):
+        """The eager chunk that writes nothing it was given: each call
+        runs ``_chunk`` on copies of ``states`` and ``meta`` and returns
+        ``(new_states, new_meta, stats)``, so it may run repeatedly on the
+        same arguments.  The tick loop itself writes into the engine's
+        static buffers (through the graph, on the card)."""
+        def run(prepared, states, ring, meta):
+            new_states = [
+                neuron.NeuronState(st.u.clone(), st.refrac.clone())
+                for st in states
+            ]
+            new_meta = {k: v.clone() for k, v in meta.items()}
+            stats = torch.empty_like(self._stats)
+            self._chunk(prepared, new_states, ring, new_meta, stats)
+            return new_states, new_meta, stats
+
+        return run

@@ -639,3 +639,126 @@ def test_api_raises_when_a_kernel_cannot_build_or_launch_on_card(
     monkeypatch.setattr(_build, "load", failing_launch)
     with pytest.raises(RuntimeError, match="launch failed: CUDA error 700"):
         call()
+
+
+# ------------------------------------------- the serving tick as a graph
+def _serving_engine(d, backend="fused", slots=8, **kw):
+    """The serving engine at the collision network's full width
+    (4096-512-2, Tc = 5), random weights from a seed, the output layer's
+    threshold lowered so that it spikes."""
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.serving.snn_engine import SNNStreamEngine
+
+    params = snn.init_params(torch.Generator().manual_seed(3), CONFIG, d)
+    params[f"layer{CONFIG.num_layers - 1}"]["threshold"].fill_(0.1)
+    return SNNStreamEngine(params, CONFIG, num_slots=slots, chunk_steps=5,
+                           backend=backend, device=d, **kw)
+
+
+def _serving_trains(steps, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.random((T, 4096)) < rng.uniform(0.05, 0.4)).astype(np.float32)
+            for T in steps]
+
+
+def _fields(r):
+    return (r.prediction, r.steps, r.spike_rate, r.energy_pj,
+            r.spike_counts.tolist(), r.events_per_layer.tolist(),
+            r.disposition, r.fault)
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_eager_chunk_on_card(cuda_device):
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    eng = _serving_engine(cuda_device)
+    trains = _serving_trains([25, 25, 12, 25, 7, 25, 20, 25])
+    args = eng.staged_chunk_args(trains)
+    states, meta, stats = eng.chunk_for_timing()(*args)
+    for x in trains:
+        eng.submit(StreamRequest(spikes=x, num_steps=x.shape[0]))
+    eng.poll()  # admits all eight, captures, replays chunk 1
+    torch.cuda.synchronize()
+    assert eng.graphed and eng.graph_captures == eng.graph_replays == 1
+    assert eng.graph_launches_per_replay == 1
+    assert torch.equal(eng._stats, stats)
+    for live, twin in zip(eng._states, states):
+        assert torch.equal(live.u, twin.u)
+        assert torch.equal(live.refrac, twin.refrac)
+    for k in meta:
+        assert torch.equal(eng._meta[k], meta[k])
+    eng.drain()
+
+
+@pytest.mark.cuda
+def test_ring_growth_recaptures_once_on_card(cuda_device):
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    trains = _serving_trains([25, 25, 10, 25, 25, 25, 25], seed=1)
+    long = _serving_trains([40], seed=2)[0]
+    out = {}
+    for backend in ("fused", "fused_ref"):
+        eng = _serving_engine(cuda_device, backend=backend)
+        for x in trains:
+            eng.submit(StreamRequest(spikes=x, num_steps=x.shape[0]))
+        results = eng.poll() + eng.poll()  # the graph of the first ring
+        eng.submit(StreamRequest(spikes=long, num_steps=40))
+        results += eng.drain()  # grows the ring into the free slot
+        out[backend] = sorted(results, key=lambda r: r.request_id)
+        if backend == "fused":
+            assert eng.graph_captures == 2
+            assert eng.steady_state_recompiles() == 0
+            assert eng.graph_replays == eng.dispatched_ticks
+            assert eng._ring["counts"].shape[1] == 45
+    assert [_fields(r) for r in out["fused"]] == [
+        _fields(r) for r in out["fused_ref"]]
+    assert out["fused"][-1].steps == 40
+
+
+@pytest.mark.cuda
+def test_steady_tick_passes_sync_debug_mode_on_card(cuda_device):
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    eng = _serving_engine(cuda_device)
+    for x in _serving_trains([25] * 8, seed=4):
+        eng.submit(StreamRequest(spikes=x))
+    eng.poll()
+    eng.poll()
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert eng.poll() == []  # chunk 3 replayed, chunk 2 retired
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs
+    assert len(eng.drain()) == 8
+    assert eng.steady_state_recompiles() == 0
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_card(cuda_device, monkeypatch):
+    """A chunk that cannot be captured (here: one that reads the card
+    from the host) makes the dispatch raise; the engine runs no eager
+    chunk in the graph's place."""
+    from repro_torch.kernels import snn_chunk as chunk
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    eng = _serving_engine(cuda_device, slots=2)
+    real = eng._chunk
+
+    def reading_chunk(*args):
+        real(*args)
+        args[-1].sum().item()  # a host read: illegal while capturing
+
+    monkeypatch.setattr(eng, "_chunk", reading_chunk)
+    for x in _serving_trains([25, 25], seed=5):
+        eng.submit(StreamRequest(spikes=x))
+    before = chunk.snn_chunk.launches
+    with pytest.raises(RuntimeError):
+        eng.poll()
+    torch.cuda.synchronize()
+    assert eng.graph_captures == eng.graph_replays == 0
+    assert eng.dispatched_ticks == 0 and not eng._inflight
+    assert chunk.snn_chunk.launches == before + 1  # the warm-up, on copies
+    assert not eng._stats.any()
