@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero:
    the dispatched ticks, one eager warm-up launch a capture, and no
    steady-state re-capture; prints ms/tick, req/s and ``tick_breakdown``
    beside the same run on the eager engine (``cuda_graph=False``), which
-   must give identical results; checks that an engine forced onto the
+   must give identical results, and that neither engine retried or
+   demoted a chunk; checks that an engine forced onto the
    plain version gives identical results for the spike requests; runs
    one steady tick under ``torch.cuda.set_sync_debug_mode("error")``
    (one stats read, no device allocation); prints
@@ -70,7 +71,25 @@ Phases, in order; any failure exits non-zero:
    computes its bound.  Also times an empty kernel on the LIF kernel's
    grid (the LIF kernel's floor) and the ``q115_matmul`` inner loop's
    instruction pair alone on every SM (the rate its bound assumes).
-9. Prints the kernel table as one JSON line (the aer row also carries
+9. Faults, admission, preemption and snapshots on the graph engine at
+   full width (4096-512-2, 8 slots, Tc = 5), spike requests only, each
+   check against a run of the same requests: chaos (48 requests under a
+   seeded schedule of 2 NaN membranes, 2 corrupt rings and 2 transient
+   chunk exceptions; quarantines equal the faulted requests, every other
+   result equals the fault-free graph run's, retries equal the injected
+   raises, no re-capture); demotion (a persistent fused-only exception
+   demotes the engine to ``torch`` with one warning, its results equal
+   the plain chunk's); admission (a burst of 48 against a queue of 8
+   sheds and parks as the same burst does on the CPU; ``shed_rate()``);
+   preemption (tight windows park a loose one, results equal the run
+   without preemption, and the steady tick after the resume reads the
+   host once and allocates nothing; park and resume p50 in µs); snapshot
+   (mid-run with a queue and a parked window, restored into an engine
+   that has captured, equal to the uninterrupted run, no re-capture; a
+   corrupt newest snapshot of two falls back; snapshot ms, bytes on disk
+   and restore ms).  Every phase without injected faults is checked for
+   0 retries and 0 demotions, and its replays against its ticks.
+10. Prints the kernel table as one JSON line (the aer row also carries
    the sparse and layer-1 times and every phase-5 case; the lif row its
    second form and floor; the q115 row each shape and saturation), then
    ``{"ok": true, ...}`` as the last line.
@@ -437,42 +456,18 @@ def graph_of(torch, fn, *args):
 
 
 def steady_tick(torch, eng, reqs):
-    """One steady mid-window tick (no admission, no request finishing)
-    of a graph engine under ``torch.cuda.set_sync_debug_mode("error")``:
-    fails on any implicit synchronisation.  The tick's one wait, the
-    stats event in ``_retire``, is an explicit ``Event.synchronize`` and
-    is not exempted.  Also counts the tick's device allocations (from the
-    caching allocator's statistics) and its host reads (``_fetch``)."""
+    """Submit ``reqs`` to a graph engine, run its first steady tick under
+    ``steady_poll``, check that no chunk or host stats buffer moved, and
+    drain."""
     for r in reqs:
         eng.submit(r)
-    eng.poll()  # admission, the capture, chunk 1
-    eng.poll()  # chunk 2, retires chunk 1
-    torch.cuda.synchronize()
-    fetches = []
-    real_fetch = eng._fetch
-
-    def counting_fetch(host, ready):
-        fetches.append(host.data_ptr())
-        return real_fetch(host, ready)
-
-    eng._fetch = counting_fetch
-    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     buffers = [eng._stats.data_ptr()] + [h.data_ptr() for h in eng._host_stats]
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng.poll()  # chunk 3, retires chunk 2
-    except RuntimeError as err:
-        fail(f"a steady tick synchronised implicitly: {err}")
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
-    del eng._fetch
-    if len(fetches) != 1 or allocs != 0 or buffers != (
-            [eng._stats.data_ptr()] + [h.data_ptr() for h in eng._host_stats]):
-        fail(f"steady tick: {len(fetches)} stats reads, {allocs} device "
-             f"allocations, buffers moved: {buffers}")
+    _, reads, allocs = steady_poll(torch, eng, "main path")
+    if buffers != ([eng._stats.data_ptr()]
+                   + [h.data_ptr() for h in eng._host_stats]):
+        fail(f"steady tick: buffers moved: {buffers}")
     eng.drain()
-    return len(fetches), allocs
+    return reads, allocs
 
 
 def where_host_time_goes(name, eng, wall):
@@ -577,6 +572,8 @@ def phase_main(torch, dev, params_np, card):
 
     base = engine("fused", cuda_graph=False)
     base_results, base_wall, base_launches = serve(base)
+    check_no_retries("main path (graph)", eng)
+    check_no_retries("main path (eager)", base)
     print(f"main path (eager): {len(base_results)} requests in "
           f"{base_wall:.3f} s over {base.dispatched_ticks} ticks, "
           f"{base_launches} snn_chunk launches | "
@@ -678,6 +675,340 @@ def profile_main(torch, eng, reqs, card, name):
     for kname, us in top:
         print(f"profile[{name}]:   {us / 1e3:8.3f} ms  {kname[:90]}")
     return busy_ms / wall_ms
+
+
+def fault_fields(r):
+    """Every field of a result but the clocks, the deadline verdict and
+    the request id: what two runs of the same requests must agree on."""
+    return (r.prediction, r.steps, r.spike_rate, r.energy_pj,
+            r.spike_counts.tolist(), r.events_per_layer.tolist(),
+            r.disposition, r.fault, r.parked)
+
+
+def check_no_retries(name, eng):
+    """A run without injected faults: no retry and no demotion."""
+    snap = eng.metrics_snapshot()
+    retries = snap["engine.faults.chunk_retries"]["value"]
+    demoted = snap["engine.faults.backend_demoted"]["value"]
+    if retries or demoted:
+        fail(f"{name}: {retries} chunk retries, {demoted} demotions without "
+             f"an injected fault")
+
+
+def check_clean(name, eng):
+    """A graphed run without injected faults: no retry, no demotion, no
+    steady-state re-capture, and one kernel launch a replay for every
+    dispatched tick."""
+    check_no_retries(name, eng)
+    check_graph(name, eng)
+
+
+def check_graph(name, eng):
+    if eng.steady_state_recompiles():
+        fail(f"{name}: {eng.steady_state_recompiles()} steady-state "
+             f"re-captures")
+    per = eng.graph_launches_per_replay
+    if not eng.graphed or per != 1 or per * eng.graph_replays != (
+            eng.dispatched_ticks):
+        fail(f"{name}: graphed {eng.graphed}, {per} snn_chunk launch(es) a "
+             f"replay x {eng.graph_replays} replays != "
+             f"{eng.dispatched_ticks} dispatched ticks")
+
+
+def steady_poll(torch, eng, name):
+    """Poll until the next tick is steady (no admission, resume or park
+    pending, no window finishing, one chunk in flight), then run that
+    tick under ``set_sync_debug_mode("error")``, failing on any implicit
+    synchronisation (the tick's one wait, the stats event in ``_retire``,
+    is an explicit ``Event.synchronize`` and is not exempted), on more or
+    fewer than one host read (``_fetch``) and on any device allocation."""
+    def steady():
+        resident = [s for s in range(eng.S) if eng._slot_req[s] is not None]
+        return (resident and not eng._queue and not eng._parked
+                and not eng._preempt_parked
+                and len(eng._inflight) == eng.pipeline_depth
+                and all(eng._slot_total[s] - eng._slot_done[s] > eng.Tc
+                        for s in resident))
+
+    results = []
+    while not steady():
+        if eng.idle():
+            fail(f"{name}: no steady tick before the engine went idle")
+        results += eng.poll()
+    torch.cuda.synchronize()
+    fetches = []
+    real_fetch = eng._fetch
+    eng._fetch = lambda host, ready: (fetches.append(1),
+                                      real_fetch(host, ready))[1]
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        results += eng.poll()
+    except RuntimeError as err:
+        fail(f"{name}: a steady tick synchronised implicitly: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del eng._fetch
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+    if len(fetches) != 1 or allocs != 0:
+        fail(f"{name}: steady tick made {len(fetches)} stats reads and "
+             f"{allocs} device allocations")
+    return results, len(fetches), allocs
+
+
+def phase_faults(torch, dev, params_np, card):
+    """Phase 9: the fault-tolerance plane, preemption and crash-safe state
+    on the graph engine at full width, spike requests only."""
+    import shutil
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.core import snn
+    from repro_torch.faults import (AdmissionPolicy, Fault, FaultInjector,
+                                    FaultSchedule, RetryPolicy,
+                                    corrupt_checkpoint)
+    from repro_torch.serving.snn_engine import SNNStreamEngine, StreamRequest
+
+    params = snn.params_from_numpy(params_np, dev)
+    K, T = CONFIG.layer_sizes[0], CONFIG.num_steps
+    rng = np.random.default_rng(SEED + 9)
+
+    def trains(n, steps=None):
+        out = []
+        for i in range(n):
+            t = int(steps[i]) if steps is not None else T
+            out.append((rng.random((t, K)) < rng.uniform(0.05, 0.4))
+                       .astype(np.float32))
+        return out
+
+    def engine(backend="fused", **kw):
+        return SNNStreamEngine(params, CONFIG, num_slots=SLOTS,
+                               chunk_steps=TC, backend=backend, device=dev,
+                               **kw)
+
+    def reqs(xs, **kw):
+        return [StreamRequest(spikes=x, num_steps=x.shape[0], **kw)
+                for x in xs]
+
+    def p50_us(eng, key):
+        return eng.metrics_snapshot()[key]["p50"] * 1e6
+
+    # chaos: two NaN membranes, two corrupt rings, two transient
+    # exceptions, at seeded ticks and slots
+    chaos_x = trains(48, rng.integers(10, T + 1, 48))
+    clean_eng = engine()
+    clean = {r.request_id: r for r in clean_eng.run(reqs(chaos_x))}
+    check_clean("chaos, fault-free run", clean_eng)
+    horizon = clean_eng.dispatched_ticks - 4
+    kinds = ["nan_membrane"] * 2 + ["corrupt_ring"] * 2 + ["chunk_exception"] * 2
+    schedule = FaultSchedule(faults=tuple(sorted((
+        Fault(tick=int(rng.integers(1, horizon)), kind=k,
+              slot=int(rng.integers(SLOTS)), layer=int(rng.integers(2)))
+        for k in kinds), key=lambda f: f.tick)), seed=SEED + 9)
+    inj = FaultInjector(schedule)
+    eng = engine(injector=inj,
+                 retry=RetryPolicy(max_retries=8, backoff_s=0.0))
+    results = eng.run(reqs(chaos_x))
+    hit = [rec for rec in inj.applied
+           if rec["kind"] in ("nan_membrane", "corrupt_ring")]
+    faulted = {rec["rid"] for rec in hit}
+    quarantined = {r.request_id for r in results
+                   if r.disposition == "quarantined"}
+    snap = eng.metrics_snapshot()
+    if len(hit) != 4 or quarantined != faulted:
+        fail(f"chaos: {len(hit)} state/ring faults applied to {faulted}, "
+             f"quarantined {quarantined}")
+    if snap["engine.requests.quarantined"]["value"] != len(faulted):
+        fail("chaos: the quarantine counter disagrees with the results")
+    bad = [r.request_id for r in results if r.request_id not in faulted
+           and fault_fields(r) != fault_fields(clean[r.request_id])]
+    if bad:
+        fail(f"chaos: requests {bad} differ from the fault-free graph run")
+    retries = snap["engine.faults.chunk_retries"]["value"]
+    if inj.raised != 2 or retries != inj.raised:
+        fail(f"chaos: {inj.raised} injected raises, {retries} retries")
+    if snap["engine.faults.backend_demoted"]["value"]:
+        fail("chaos: a transient fault demoted the engine")
+    check_graph("chaos", eng)
+    print(f"faults[chaos]: 48 requests, {len(inj.applied)} faults applied "
+          f"({len(hit)} state/ring at ticks "
+          f"{[rec['tick'] for rec in hit]}), quarantined "
+          f"{sorted(quarantined)} = the faulted requests, the other "
+          f"{len(results) - len(quarantined)} equal the fault-free graph "
+          f"run bit for bit | retries {int(retries)} = injected raises | "
+          f"{eng.graph_replays} replays = {eng.dispatched_ticks} ticks, "
+          f"re-captures 0 | on {card}")
+
+    # demotion: a persistent fused-only exception from the first tick
+    inj = FaultInjector(FaultSchedule(faults=(Fault(
+        tick=0, kind="chunk_exception", times=10**6, only_backend="fused"),)))
+    eng = engine(injector=inj, retry=RetryPolicy(max_retries=1, backoff_s=0.0))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        demoted = eng.run(reqs(chaos_x))
+    warns = [w for w in caught if issubclass(w.category, RuntimeWarning)
+             and "demoting backend fused -> torch" in str(w.message)]
+    snap = eng.metrics_snapshot()
+    if (len(warns) != 1 or snap["engine.faults.backend_demoted"]["value"] != 1
+            or eng.backend != "torch" or eng.graphed or eng._graph is not None):
+        fail(f"demotion: {len(warns)} warnings, demoted "
+             f"{snap['engine.faults.backend_demoted']['value']}, backend "
+             f"{eng.backend}, graphed {eng.graphed}")
+    plain_eng = engine("torch")
+    plain = plain_eng.run(reqs(chaos_x))
+    if [fault_fields(r) for r in demoted] != [fault_fields(r) for r in plain]:
+        fail("demotion: the demoted engine differs from the plain chunk")
+    same = [(r.prediction, r.spike_counts.tolist(), r.events_per_layer.tolist())
+            == (c.prediction, c.spike_counts.tolist(),
+                c.events_per_layer.tolist())
+            for r, c in zip(demoted, (clean[i] for i in range(48)))]
+    if not all(same):
+        fail(f"demotion: spike counts, events or prediction differ from the "
+             f"fault-free graph run on requests "
+             f"{[i for i, ok in enumerate(same) if not ok]}")
+    print(f"faults[demotion]: one RuntimeWarning, backend_demoted 1, backend "
+          f"{eng.backend}, graphed {eng.graphed}; 48 results equal the plain "
+          f"chunk's in every field and the fault-free graph run's in spike "
+          f"counts, events and prediction | on {card}")
+
+    # admission: one burst, the bounded queue sheds and parks; the same
+    # burst through the port on the CPU sheds and parks the same
+    def burst(eng):
+        xs = trains(48)
+        for i, x in enumerate(xs):
+            eng.submit(StreamRequest(spikes=x, priority=int(i % 3 == 0)))
+        res = eng.drain()
+        return ((sum(r.disposition == "shed" for r in res),
+                 sum(r.parked for r in res),
+                 sum(r.disposition == "ok" for r in res)), eng.shed_rate())
+
+    eng = engine(admission=AdmissionPolicy(max_queue_depth=8))
+    card_counts, shed_rate = burst(eng)
+    check_clean("admission", eng)
+    cpu_eng = SNNStreamEngine(
+        snn.params_from_numpy(params_np, "cpu"), CONFIG, num_slots=SLOTS,
+        chunk_steps=TC, device="cpu",
+        admission=AdmissionPolicy(max_queue_depth=8))
+    cpu_counts, _ = burst(cpu_eng)
+    if card_counts != cpu_counts or card_counts[0] == 0:
+        fail(f"admission: (shed, parked, ok) {card_counts} on the card, "
+             f"{cpu_counts} on the CPU")
+    print(f"faults[admission]: burst of 48, max_queue_depth 8: shed "
+          f"{card_counts[0]}, parked then served {card_counts[1]}, ok "
+          f"{card_counts[2]} (the CPU: {cpu_counts}) | shed_rate() "
+          f"{shed_rate:.4f} | on {card}")
+
+    # preemption: 8 loose windows, then 4 tight ones of one chunk each
+    loose, tight = trains(8), trains(4, [TC] * 4)
+
+    def preempt_run(eng):
+        for r in reqs(loose, deadline_s=1e4):
+            eng.submit(r)
+        res = eng.poll()
+        for r in reqs(tight, deadline_s=5.0):
+            eng.submit(r)
+        return res
+
+    def by_rid(results):
+        return {r.request_id: fault_fields(r) for r in results}
+
+    base = engine()
+    base_res = by_rid(preempt_run(base) + base.drain())
+    check_clean("preemption, without preempt", base)
+    eng = engine(preempt=True)
+    res = preempt_run(eng)
+    res2, reads, allocs = steady_poll(torch, eng, "preemption")
+    res = by_rid(res + res2 + eng.drain())
+    snap = eng.metrics_snapshot()
+    parks = snap["engine.preempt.parked"]["value"]
+    resumed = snap["engine.preempt.resumed"]["value"]
+    if parks < 1 or resumed != parks:
+        fail(f"preemption: {parks} parks, {resumed} resumes")
+    if res != base_res or sorted(res) != list(range(12)):
+        fail("preemption: results differ from the run without preempt")
+    check_clean("preemption", eng)
+    print(f"faults[preemption]: {int(parks)} park(s), {int(resumed)} "
+          f"resume(s); 12 results equal the run without preempt bit for bit "
+          f"| steady tick after the resume: {reads} stats read, {allocs} "
+          f"device allocations, set_sync_debug_mode('error') | re-captures 0 "
+          f"| park_s p50 {p50_us(eng, 'engine.preempt.park_s'):.1f} us, "
+          f"restore_s p50 {p50_us(eng, 'engine.preempt.restore_s'):.1f} us "
+          f"| on {card}")
+
+    # snapshot mid-run (a queue, one preempt-parked window), restore into
+    # an engine that has already captured its graph, drain
+    snap_root = ROOT / "build" / "smoke_snapshots"
+    shutil.rmtree(snap_root, ignore_errors=True)
+    extra = trains(3)
+
+    def snap_run(eng, path=None):
+        res = preempt_run(eng)
+        for r in reqs(extra, deadline_s=2e4):
+            eng.submit(r)
+        res += eng.poll()  # parks a window; the queue holds the rest
+        if path is not None:
+            if eng.queue_depth() == 0 or eng.preempt_parked_depth() != 1:
+                fail(f"snapshot: queue {eng.queue_depth()}, preempt-parked "
+                     f"{eng.preempt_parked_depth()} at the snapshot")
+            eng.snapshot(str(path))
+        return res
+
+    whole = engine(preempt=True)
+    want = by_rid(snap_run(whole) + whole.drain())
+    eng1 = engine(preempt=True)
+    early = snap_run(eng1, snap_root / "mid")
+    queued = eng1.queue_depth()
+    eng2 = engine(preempt=True)
+    eng2.run(reqs(trains(1)))  # captures its graph
+    captures = eng2.graph_captures
+    eng2.restore(str(snap_root / "mid"))
+    if by_rid(early + eng2.drain()) != want:
+        fail("snapshot: the restored engine differs from the uninterrupted "
+             "run")
+    if eng2.graph_captures != captures:
+        fail(f"snapshot: restore re-captured ({captures} -> "
+             f"{eng2.graph_captures})")
+    check_clean("snapshot, restored engine", eng2)
+    nbytes = sum(p.stat().st_size for p in (snap_root / "mid").rglob("*")
+                 if p.is_file())
+    save_ms = eng1.metrics_snapshot()["engine.snapshot.save_s"]["sum"] * 1e3
+    load_ms = eng2.metrics_snapshot()["engine.snapshot.restore_s"]["sum"] * 1e3
+
+    # a keep-N rotation whose newest snapshot is corrupt falls back
+    rot = snap_root / "rotation"
+    eng3 = engine()
+    for r in reqs(trains(12)):
+        eng3.submit(r)
+    first = eng3.poll()
+    eng3.snapshot_auto(str(rot))
+    rest = eng3.poll()
+    eng3.snapshot_auto(str(rot))
+    whole3 = by_rid(first + rest + eng3.drain())
+    corrupt_checkpoint(str(rot))
+    eng4 = engine()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        restored = eng4.restore_latest_snapshot(str(rot))
+    fallback = eng4.metrics_snapshot()[
+        "engine.faults.checkpoint_fallback"]["value"]
+    if (restored is None or not restored.endswith("snap_000001")
+            or fallback != 1):
+        fail(f"snapshot: corrupt newest snapshot, restored {restored}, "
+             f"checkpoint_fallback {fallback}")
+    if by_rid(first + eng4.drain()) != whole3:
+        fail("snapshot: the fallback restore differs from the run")
+    check_clean("snapshot, fallback engine", eng4)
+    shutil.rmtree(snap_root, ignore_errors=True)
+    print(f"faults[snapshot]: {len(want)} requests, snapshot with {queued} "
+          f"queued and 1 preempt-parked window, restored into an engine that "
+          f"had captured (captures {captures} -> {eng2.graph_captures}): "
+          f"results equal the uninterrupted run bit for bit | snapshot "
+          f"{save_ms:.2f} ms, {nbytes} bytes on disk, restore {load_ms:.2f} "
+          f"ms | corrupt newest of 2 rotated: fell back to "
+          f"{Path(restored).name}, checkpoint_fallback 1, results equal the "
+          f"run | on {card}")
 
 
 def train_config():
@@ -1468,6 +1799,8 @@ def main() -> int:
     hw = phase_hw_path(torch, dev, params_np, card)
     # 8. the API's kernels against their plain versions
     ops_k = phase_ops_kernels(torch, dev, hw, card)
+    # 9. faults, admission, preemption and snapshots on the graph engine
+    phase_faults(torch, dev, params_np, card)
 
     odd = collections.Counter(x for x in RECORD_OFFSETS if x)
     print(f"profiler: {sum(odd.values())} of {len(RECORD_OFFSETS)} kernel "
@@ -1475,7 +1808,7 @@ def main() -> int:
           f"reps x launches: {dict(odd)}); their times use each kernel's mean "
           f"duration")
 
-    # 9. results
+    # 10. results
     dense = aer["layer0_dense_t0"]
     aer_cases = {name: {k: c[k] for k in ("variant", "ms", "alone_ms",
                                           "bound_ms", "library_ms")}

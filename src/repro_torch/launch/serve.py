@@ -3,14 +3,22 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --snn --requests 16 \
       --batch 8 --image-hw 64 --hidden 512 --num-steps 25 --chunk-steps 5 \
       [--snn-backend fused|torch|auto] [--no-pipeline] [--deadline-ms 50] \
+      [--arrival-rate 400] [--drain-timeout 30] \
+      [--max-queue 16] [--shed] [--inject-faults 4 --fault-seed 0] \
+      [--snapshot-dir DIR --snapshot-every 0.5] [--restore] [--preempt] \
       [--metrics-json m.json] [--trace-out t.json] [--timeseries-out s.jsonl] \
       [--profile-ticks 20 --profile-dir DIR] [--device cuda|cpu]
 
 Requests are rate-coded images of the synthetic collision dataset; the
-network's weights are random, made from a seed.  Runs on the card unless
+network's weights are random, made from a seed.  Closed loop by default;
+``--arrival-rate`` submits them open-loop at Poisson arrival times.  The
+fault-tolerance flags are the reference launcher's: a bounded admission
+queue and feasibility shedding, seeded chaos, rotating snapshots with a
+warm restart, and deadline-aware preemption.  Runs on the card unless
 ``--device cpu`` is given, and fails rather than fall back to the CPU.
-The summary reads the engine's metrics snapshot, its SLO verdict
-(``engine.health()``) and its tick-phase breakdown.
+The summary splits the results into ``ok | shed | quarantined`` and reads
+the engine's metrics snapshot, its SLO verdict (``engine.health()``) and
+its tick-phase breakdown.
 """
 
 from __future__ import annotations
@@ -27,10 +35,95 @@ import torch
 from repro_torch.core import snn
 from repro_torch.data import collision
 from repro_torch.serving.snn_engine import (
+    EngineStallError,
     SNNStreamEngine,
     StreamRequest,
     resolve_device,
 )
+
+
+def _fault_plane(args, cfg):
+    """The admission policy and the seeded fault injector the flags ask
+    for (None when off)."""
+    admission = injector = None
+    if args.max_queue > 0 or args.shed:
+        from repro_torch.faults import AdmissionPolicy
+
+        admission = AdmissionPolicy(
+            max_queue_depth=args.max_queue if args.max_queue > 0 else None,
+            shed_unmeetable=args.shed,
+        )
+    if args.inject_faults > 0:
+        from repro_torch.faults import FaultInjector, FaultSchedule
+
+        chunks = -(-cfg.num_steps // args.chunk_steps)
+        horizon = max(2 * args.requests * chunks // max(args.batch, 1), 8)
+        injector = FaultInjector(FaultSchedule.generate(
+            args.fault_seed, args.inject_faults, ticks=horizon,
+            num_slots=args.batch, num_layers=cfg.num_layers,
+            kinds=("nan_membrane", "corrupt_ring", "chunk_exception"),
+        ))
+    return admission, injector
+
+
+def _serve_loop(args, engine, reqs):
+    """Serve ``reqs``: open loop at Poisson arrivals (``--arrival-rate``),
+    or closed loop; snapshots on the ``--snapshot-every`` cadence, and a
+    bounded drain (``--drain-timeout``) that reports the stuck slots."""
+    snap_t = [time.perf_counter()]
+
+    def maybe_snapshot():
+        if not args.snapshot_dir or args.snapshot_every <= 0:
+            return
+        if time.perf_counter() - snap_t[0] >= args.snapshot_every:
+            engine.snapshot_auto(args.snapshot_dir)
+            snap_t[0] = time.perf_counter()
+
+    def stalled(slots):
+        print(f"snn: STALLED after {args.drain_timeout:.1f}s — stuck "
+              f"slots: {slots}")
+
+    if args.arrival_rate > 0:
+        # open loop: Poisson arrivals at the requested rate, submitted to
+        # the engine while earlier requests' chunks are in flight
+        gaps = np.random.default_rng(3).exponential(
+            1.0 / args.arrival_rate, len(reqs))
+        arrivals = np.cumsum(gaps)
+        results, i = [], 0
+        start = time.perf_counter()
+        while i < len(reqs) or not engine.idle():
+            now = time.perf_counter() - start
+            while i < len(reqs) and arrivals[i] <= now:
+                engine.submit(reqs[i])
+                i += 1
+            if engine.idle() and i < len(reqs):
+                time.sleep(max(arrivals[i] - (time.perf_counter() - start),
+                               0.0))
+                continue
+            results.extend(engine.poll())
+            maybe_snapshot()
+        return sorted(results, key=lambda r: r.request_id)
+    for r in reqs:
+        engine.submit(r)
+    if args.snapshot_dir and args.snapshot_every > 0:
+        # closed loop with a live snapshot cadence: poll by hand so the
+        # engine can snapshot between ticks
+        results, t_start = [], time.perf_counter()
+        while not engine.idle():
+            if (args.drain_timeout > 0
+                    and time.perf_counter() - t_start > args.drain_timeout):
+                stalled(engine.stall_snapshot()["slots"])
+                break
+            results.extend(engine.poll())
+            maybe_snapshot()
+        return sorted(results, key=lambda r: r.request_id)
+    try:
+        results = engine.drain(
+            timeout_s=args.drain_timeout if args.drain_timeout > 0 else None)
+    except EngineStallError as e:
+        stalled(e.snapshot["slots"])
+        results = list(e.results)
+    return sorted(results, key=lambda r: r.request_id)
 
 
 def _serve_snn(args) -> None:
@@ -44,11 +137,26 @@ def _serve_snn(args) -> None:
         layer_sizes=(input_size, args.hidden, 2), num_steps=args.num_steps
     )
     params = snn.init_params(torch.Generator().manual_seed(0), cfg, device)
+    admission, injector = _fault_plane(args, cfg)
     engine = SNNStreamEngine(
         params, cfg, num_slots=args.batch, chunk_steps=args.chunk_steps,
         seed=1, backend=args.snn_backend,
-        pipeline_depth=0 if args.no_pipeline else 1, device=device,
+        pipeline_depth=0 if args.no_pipeline else 1,
+        admission=admission, injector=injector, preempt=args.preempt,
+        device=device,
     )
+    if args.restore:
+        # warm restart from the newest intact snapshot (corrupt or partial
+        # ones are skipped with a warning)
+        if not args.snapshot_dir:
+            raise SystemExit("--restore requires --snapshot-dir")
+        restored = engine.restore_latest_snapshot(args.snapshot_dir)
+        if restored is not None:
+            print(f"snn: warm-restarted from {restored} (resident slots "
+                  f"resume mid-window)")
+        else:
+            print(f"snn: no usable snapshot under {args.snapshot_dir}; "
+                  f"cold start")
     data_cfg = collision.CollisionConfig(
         image_hw=hw, num_train=0, num_test=args.requests
     )
@@ -67,21 +175,25 @@ def _serve_snn(args) -> None:
         )
 
     t0 = time.time()
-    results = engine.run(reqs)
+    results = _serve_loop(args, engine, reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     if profile is not None:
         profile.stop()
+    # latency, energy and throughput over served requests only: shed ones
+    # never ran, quarantined ones carry their fault code, not outputs
     ok = [r for r in results if r.disposition == "ok"]
-    n_quar = len(results) - len(ok)
+    n_shed = sum(r.disposition == "shed" for r in results)
+    n_quar = sum(r.disposition == "quarantined" for r in results)
     rate = np.array([r.spike_rate for r in ok]) if ok else np.zeros(1)
     events_total = float(sum(r.events_per_layer.sum() for r in ok))
-    disp = f" (ok {len(ok)} | quarantined {n_quar})" if n_quar else ""
+    loop = (f"open-loop {args.arrival_rate:.0f} req/s"
+            if args.arrival_rate > 0 else "closed-loop")
     print(
         f"snn[{input_size}->{args.hidden}->2, T={cfg.num_steps}, rate-coded]: "
         f"served {len(results)} reqs in {dt:.2f}s on {args.batch} slots "
-        f"(closed-loop){disp}"
+        f"({loop}) (ok {len(ok)} | shed {n_shed} | quarantined {n_quar})"
     )
     # latency and energy from the metrics snapshot, as the reference's
     # launcher reads them
@@ -120,6 +232,23 @@ def _serve_snn(args) -> None:
     )
     diag = health["diagnosis"]
     print(f"  diagnosis: {diag['verdict'].upper()} — {diag['hint']}")
+    if admission is not None or injector is not None or n_shed or n_quar:
+        print(
+            f"  fault plane: shed {n_shed} ({engine.shed_rate():.1%} of "
+            f"submitted) | parked served {sum(r.parked for r in ok)} | "
+            f"quarantined {n_quar} | injected "
+            f"{int(snap['engine.faults.injected']['value'])} | retries "
+            f"{int(snap['engine.faults.chunk_retries']['value'])} | "
+            f"demotions {int(snap['engine.faults.backend_demoted']['value'])}"
+        )
+    if args.preempt or args.snapshot_dir:
+        print(
+            f"  crash safety: preempt parked "
+            f"{int(snap['engine.preempt.parked']['value'])} / resumed "
+            f"{int(snap['engine.preempt.resumed']['value'])} | snapshots "
+            f"{snap['engine.snapshot.save_s']['count']} | restores "
+            f"{snap['engine.snapshot.restore_s']['count']}"
+        )
     print(
         f"  measured energy/inference: mean {en['mean']/1e3:.1f} nJ, "
         f"p99 {en['p99']/1e3:.1f} nJ (model estimate from counted events) "
@@ -175,6 +304,40 @@ def main(argv=None):
     ap.add_argument("--chunk-steps", type=int, default=5)
     ap.add_argument("--deadline-ms", type=float, default=0.0,
                     help="per-request latency budget in ms (0 = none)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop Poisson arrival rate in req/s "
+                         "(0 = closed loop)")
+    ap.add_argument("--drain-timeout", type=float, default=0.0,
+                    help="closed-loop drain timeout in seconds; on expiry "
+                         "print the stuck slots instead of hanging "
+                         "(0 = wait forever)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bound the admission queue at N (overflow sheds "
+                         "priority-0 requests, parks higher priorities; "
+                         "0 = unbounded)")
+    ap.add_argument("--shed", action="store_true",
+                    help="EDF feasibility shedding: refuse requests whose "
+                         "deadline is provably unmeetable at the measured "
+                         "tick rate")
+    ap.add_argument("--inject-faults", type=int, default=0,
+                    help="chaos: inject N seeded faults (NaN membranes, "
+                         "corrupt rings, transient chunk exceptions)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the --inject-faults schedule")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="directory of rotating engine snapshots (atomic "
+                         "snap_* dirs, keep 3)")
+    ap.add_argument("--snapshot-every", type=float, default=0.0,
+                    help="snapshot cadence in seconds while serving "
+                         "(0 = never; needs --snapshot-dir)")
+    ap.add_argument("--restore", action="store_true",
+                    help="warm-restart from the newest intact snapshot "
+                         "under --snapshot-dir before serving")
+    ap.add_argument("--preempt", action="store_true",
+                    help="deadline-aware preemption: a more urgent "
+                         "arrival with no free slot parks the loosest "
+                         "resident window and resumes it later, "
+                         "bit-exactly")
     ap.add_argument("--snn-backend", default="auto",
                     choices=["auto", "torch", "fused"],
                     help="chunk hot path: the CUDA snn_chunk kernel, the "

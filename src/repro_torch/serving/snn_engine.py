@@ -27,9 +27,10 @@ The core of ``repro.serving.snn_engine.SNNStreamEngine``:
   captured at the first dispatch after a warm-up on copies, one graph per
   ring size.  Only ring growth re-captures; any other capture counts in
   ``engine.tick.recompiles`` (``steady_state_recompiles()``).  A failed
-  capture or replay raises; the engine never runs the eager chunk in its
-  place.  ``backend="torch"`` and ``"fused_ref"`` (the plain versions,
-  for checking) and the CPU run the same in-place chunk eagerly.
+  build, capture, launch or replay raises; the engine never runs the
+  eager chunk in its place.  ``backend="torch"`` and ``"fused_ref"``
+  (the plain versions, for checking) and the CPU run the same in-place
+  chunk eagerly.
 - **Pipelined stats.**  A chunk's stats are copied behind a CUDA event
   into one of ``pipeline_depth + 1`` pinned host buffers allocated once;
   with ``pipeline_depth=1`` the next chunk is dispatched before they are
@@ -41,10 +42,45 @@ The core of ``repro.serving.snn_engine.SNNStreamEngine``:
   reference engine's instruments under the reference's names: episode
   counters, request histograms, tick-phase histograms
   (``engine.tick.host_prep_s`` / ``dispatch_s`` / ``stats_fetch_s``) and
-  the fault, shedding and preemption counters (the last read 0 until the
-  port gains those planes).  ``engine.trace`` records a span per request
-  lifecycle stage and per tick phase; ``engine.timeseries`` samples the
-  registry per tick and per submit; ``health()`` judges the SLOs over it.
+  the fault, shedding, preemption and snapshot instruments.
+  ``engine.trace`` records a span per request lifecycle stage and per
+  tick phase; ``engine.timeseries`` samples the registry per tick and per
+  submit; ``health()`` judges the SLOs over it and its ``diagnosis``
+  tells "overloaded and shedding" from "faulty".
+- **Admission plane** (``admission=`` an ``faults.AdmissionPolicy``).  A
+  bounded queue sheds at ``submit()`` once full (``priority > 0`` parks
+  instead, served best-effort when the heap empties), and an EDF
+  feasibility check at admission-pop time sheds requests whose deadline
+  is provably unmeetable at the measured tick rate: both end as
+  ``StreamResult``s with ``disposition="shed"``.
+- **Faults.**  With ``fault_checks=True`` (default) the chunk carries the
+  fault bitmask (non-finite membranes, corrupt ring counts and
+  addresses, staging capacity overflow) and zeroes a faulted slot's
+  state; the request is quarantined while the other slots tick on
+  bit-identically.  The flag is fixed at construction, so the graph is
+  captured with the checks or without them.  Dispatch runs under a
+  ``faults.ChunkSupervisor``: transient failures retry, persistent
+  ``fused`` failures demote the engine to ``"torch"`` (one
+  ``RuntimeWarning``, ``engine.faults.backend_demoted``; the graph is
+  dropped and the plain chunk runs eagerly over the same buffers).  On
+  the card only an ``InjectedChunkError`` is retried or demotes: the
+  kernel is built at construction and the graph captured before the
+  supervised attempt, and any other failure of the build, the capture,
+  the fused chunk or the replay raises at once.  ``injector=`` a
+  ``faults.FaultInjector`` drives seeded chaos from inside the tick.
+- **Deadline-aware preemption** (``preempt=True``).  A strictly more
+  urgent arrival with every slot busy parks the loosest resident window:
+  its state rows, ring row and accumulators move to a host-side buffer
+  (read after the stats pipeline drained), and it later resumes from the
+  step it stopped at, written back in place through pinned buffers.
+- **Crash-safe state.**  ``snapshot(path)`` writes the complete serving
+  state (states, rings, metadata, host bookkeeping, queue, parked lists,
+  undelivered results) through the checkpoint plane's atomic, checksummed
+  ``publish_array_dir`` in the reference's format; ``restore(path)``
+  copies it into the existing buffers, so an engine that has captured its
+  graph keeps it.  ``snapshot_auto``/``restore_latest_snapshot`` add a
+  keep-N rotation with corrupt-snapshot fallback.  A snapshot directory
+  written by the reference engine restores into the port.
 
 Entry points run on the card: ``device=None`` means ``cuda`` and raises
 when no GPU is present; pass ``device="cpu"`` explicitly to run on the CPU.
@@ -55,15 +91,27 @@ from __future__ import annotations
 import collections
 import dataclasses
 import heapq
+import os
+import shutil
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import (
+    CheckpointCorruptError,
+    gc_orphan_tmpdirs,
+    load_array_dir,
+    publish_array_dir,
+)
 from repro_torch.core import coding, energy, neuron, snn
 from repro_torch.events import aer, runtime
 from repro_torch.events import capacity as cap_mod
+from repro_torch.faults import shedding as shed_mod
+from repro_torch.faults.inject import InjectedChunkError
+from repro_torch.faults.supervisor import ChunkSupervisor, RetryPolicy
 from repro_torch.obs import MetricsRegistry, TimeSeriesSampler, TraceRecorder
 from repro_torch.obs import slo as slo_mod
 
@@ -141,10 +189,61 @@ class StreamResult:
     energy_pj: float  # priced from measured events
     deadline_s: Optional[float] = None
     deadline_missed: bool = False
-    # "ok" (served) or "quarantined" (poisoned mid-flight; ``fault`` names
-    # the fault codes and the stats are discarded)
+    # "ok" (served), "shed" (refused by the admission plane, never entered
+    # a slot) or "quarantined" (poisoned mid-flight; the stats are
+    # discarded).  ``fault`` carries the shed reason or the fault codes;
+    # ``parked`` marks a priority request parked under overload and later
+    # served best-effort.
     disposition: str = "ok"
     fault: Optional[str] = None
+    parked: bool = False
+
+
+def _doc_result(r: StreamResult) -> Dict:
+    """JSON-able form of a StreamResult (snapshot manifest)."""
+    return {
+        "request_id": r.request_id,
+        "prediction": r.prediction,
+        "spike_counts": [float(x) for x in np.ravel(r.spike_counts)],
+        "steps": r.steps,
+        "latency_s": r.latency_s,
+        "queue_wait_s": r.queue_wait_s,
+        "events_per_layer": [float(x) for x in np.ravel(r.events_per_layer)],
+        "spike_rate": r.spike_rate,
+        "energy_pj": r.energy_pj,
+        "deadline_s": r.deadline_s,
+        "deadline_missed": bool(r.deadline_missed),
+        "disposition": r.disposition,
+        "fault": r.fault,
+        "parked": bool(r.parked),
+    }
+
+
+def _undoc_result(d: Dict) -> StreamResult:
+    return StreamResult(
+        request_id=d["request_id"],
+        prediction=d["prediction"],
+        spike_counts=np.asarray(d["spike_counts"], np.float64),
+        steps=d["steps"],
+        latency_s=d["latency_s"],
+        queue_wait_s=d["queue_wait_s"],
+        events_per_layer=np.asarray(d["events_per_layer"], np.float64),
+        spike_rate=d["spike_rate"],
+        energy_pj=d["energy_pj"],
+        deadline_s=d["deadline_s"],
+        deadline_missed=d["deadline_missed"],
+        disposition=d["disposition"],
+        fault=d["fault"],
+        parked=d["parked"],
+    )
+
+
+def _seed_from_key(key: np.ndarray) -> int:
+    """A 64-bit torch seed from the words of a reference PRNG key."""
+    seed = 0
+    for word in np.ravel(key).astype(np.uint64):
+        seed = ((seed << 32) | int(word)) % (1 << 64)
+    return seed
 
 
 class SNNStreamEngine:
@@ -154,7 +253,9 @@ class SNNStreamEngine:
     ``cuda_graph=False`` runs the fused chunk eagerly on the card, launch
     by launch, as the measurement baseline beside the graph; it changes
     nothing on the CPU or for the plain-version backends, which always
-    run eagerly.
+    run eagerly.  ``admission``, ``fault_checks``, ``injector``, ``retry``
+    and ``preempt`` are the reference engine's fault-tolerance knobs (see
+    the module docstring).
     """
 
     def __init__(
@@ -172,6 +273,11 @@ class SNNStreamEngine:
         timeseries_capacity: int = 4096,
         slos: Optional[Sequence] = None,
         cuda_graph: bool = True,
+        admission: Optional[shed_mod.AdmissionPolicy] = None,
+        fault_checks: bool = True,
+        injector=None,
+        retry: Optional[RetryPolicy] = None,
+        preempt: bool = False,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -191,6 +297,25 @@ class SNNStreamEngine:
             tuple(slos) if slos is not None else slo_mod.default_slos()
         )
         self._make_instruments(trace_capacity, timeseries_capacity)
+        # fault-tolerance plane: admission policy (None admits everything),
+        # the chunk's fault checks, the retry/demotion supervisor, an
+        # optional seeded fault injector, and opt-in preemption
+        self.admission = admission
+        self.fault_checks = bool(fault_checks)
+        self.injector = injector
+        self.preempt = bool(preempt)
+        self._snap_index = 0  # snapshot_auto rotation counter
+        # on the card a real failure of the kernel or the replay is never
+        # retried or demoted to the plain chunk: only injected faults are
+        self._supervisor = ChunkSupervisor(
+            retry or RetryPolicy(),
+            on_retry=lambda n: self._m_retries.inc(n),
+            on_demote=lambda: self._m_demoted.inc(),
+            retry_on=(
+                (InjectedChunkError,) if self.device.type == "cuda"
+                else (Exception,)
+            ),
+        )
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self.params = {
@@ -210,6 +335,12 @@ class SNNStreamEngine:
             bool(cuda_graph) and self.device.type == "cuda"
             and backend == "fused"
         )
+        if self.device.type == "cuda" and backend == "fused":
+            # build the kernel now, outside every supervised attempt: a
+            # failed build raises here
+            from repro_torch.kernels import _build
+
+            _build.load("snn_chunk")
         self.graph_captures = 0  # lifetime captures
         self.graph_replays = 0  # lifetime replays (one per graphed tick)
         self.graph_launches_per_replay = 0  # kernel launches in the graph
@@ -217,7 +348,9 @@ class SNNStreamEngine:
         # it (a new ring is new graph inputs)
         self._captures_expected = 1
         self._captures_accounted = 0
-        self._reset_all()
+        self.dispatched_ticks = 0  # lifetime chunk dispatches
+        self._alloc_buffers()
+        self._reset_host()
 
     # ----------------------------------------------------- observability
     def _make_instruments(
@@ -231,9 +364,7 @@ class SNNStreamEngine:
         and tick-phase histograms are engine-lifetime (``reset_tick_stats``
         zeroes the latter).  The sampler captures a registry delta on
         every tick and every admission, the signal ``health()`` evaluates
-        the SLOs against.  The shed, park, demotion, retry, injection,
-        snapshot and preemption instruments are registered so a snapshot
-        reads the reference's keys; nothing in the port moves them yet.
+        the SLOs against.
         """
         self.metrics = MetricsRegistry()
         self.trace = TraceRecorder(capacity=trace_capacity)
@@ -386,9 +517,9 @@ class SNNStreamEngine:
             "steady_state_recompiles": recompiles,
             "shed_total": shed,
             "windowed_shed_rate": window,
-            "parked_depth": 0,
+            "parked_depth": len(self._parked),
             "preempt_thrash": thrash,
-            "preempt_parked_depth": 0,
+            "preempt_parked_depth": len(self._preempt_parked),
             "preempt_park_rate": park_rate,
             "quarantined_total": quarantined,
             "backend_demotions": demoted,
@@ -406,7 +537,9 @@ class SNNStreamEngine:
         )
 
     # ------------------------------------------------------------- state
-    def _reset_all(self) -> None:
+    def _alloc_buffers(self) -> None:
+        """Allocate the chunk's static buffers and the host staging, once
+        (``_grow_ring`` reallocates the ring; nothing else does)."""
         cfg, S, dev = self.cfg, self.S, self.device
         NL, L = cfg.layer_sizes[-1], cfg.num_layers
         # the chunk's static buffers: written in place by every tick
@@ -434,7 +567,16 @@ class SNNStreamEngine:
         ]
         self._host_next = 0
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def _reset_host(self) -> None:
+        """Reset the host-side serving state: slot bookkeeping, the
+        queue, the parked lists, the stats pipeline.  Touches no device
+        buffer, so ``restore`` can run it on an engine whose graph holds
+        the buffers' addresses."""
+        cfg, S = self.cfg, self.S
+        NL, L = cfg.layer_sizes[-1], cfg.num_layers
         self._slot_req: List[Optional[int]] = [None] * S
+        self._slot_parked = [False] * S  # admitted from the parked list
         self._slot_done = np.zeros(S, np.int64)  # steps dispatched
         self._slot_retired = np.zeros(S, np.int64)  # steps stats-retired
         self._slot_total = np.zeros(S, np.int64)
@@ -442,12 +584,19 @@ class SNNStreamEngine:
         self._slot_admit_t = np.zeros(S, np.float64)
         self._slot_deadline: List[Optional[float]] = [None] * S
         self._slot_rel_deadline: List[Optional[float]] = [None] * S
+        self._slot_priority = np.zeros(S, np.int64)
         self._slot_counts = np.zeros((S, NL), np.float64)
         self._slot_memsum = np.zeros((S, NL), np.float64)
         self._slot_events = np.zeros((S, L), np.float64)
         # stats pipeline: (host stats, ready event, take, rids)
         self._inflight: "collections.deque[Tuple]" = collections.deque()
         self._queue: List[tuple] = []  # heap: (key, rid, req, t_sub, dl)
+        # admission plane: parked priority requests (FIFO, served
+        # best-effort when the heap empties)
+        self._parked: "collections.deque[tuple]" = collections.deque()
+        # preemption buffer: host records of displaced mid-window slots
+        # (state rows, ring row, accumulators), resumed by _fill_slot
+        self._preempt_parked: List[Dict] = []
         self._pending_results: List[StreamResult] = []
         self.fault_events: List[Dict] = []
         self._tick_index = 0
@@ -455,9 +604,7 @@ class SNNStreamEngine:
         self._next_rid = 0
         self._episode_open = False
         self._episode_t0 = 0.0
-        self.dispatched_ticks = 0  # lifetime chunk dispatches
         self.metrics.reset(prefix="engine.episode.")
-        self.metrics.reset(prefix="engine.tick.")
 
     def _begin_episode(self, now: float) -> None:
         # throughput and deadline counters are per episode: an episode
@@ -500,16 +647,20 @@ class SNNStreamEngine:
         }
 
     def _alloc_staging(self) -> None:
-        """Admission's pinned staging, one buffer a slot sized for the
-        ring's longest train, allocated once per ring size (the card
-        only; the CPU uploads nothing)."""
+        """Pinned staging, one byte buffer a slot, allocated once per ring
+        size (the card only; the CPU uploads nothing).  It holds the
+        ring's longest train for admission, or one slot's rows (states,
+        ring row, metadata) for a resume or a restore (``_put_rows``),
+        whichever is larger."""
         if self.device.type != "cuda":
             self._pinned: List[torch.Tensor] = []
             self._pinned_ready: List[torch.cuda.Event] = []
             return
-        n = self._ring_steps * self.cfg.layer_sizes[0]
+        rows = sum(-(-v.nbytes // 16) * 16 for v in self._slot_views(0))
+        n = max(4 * self._ring_steps * self.cfg.layer_sizes[0], rows)
         self._pinned = [
-            torch.empty((n,), dtype=torch.float32, pin_memory=True)
+            torch.empty((-(-n // 16) * 16,), dtype=torch.uint8,
+                        pin_memory=True)
             for _ in range(self.S)
         ]
         self._pinned_ready = [torch.cuda.Event() for _ in range(self.S)]
@@ -574,6 +725,21 @@ class SNNStreamEngine:
         self._next_rid += 1
         dl = now + req.deadline_s if req.deadline_s is not None else None
         self._m_submitted.inc()
+        if self.admission is not None:
+            verdict, reason = shed_mod.backpressure(
+                self.admission,
+                queue_depth=len(self._queue),
+                parked_depth=len(self._parked),
+                priority=req.priority,
+            )
+            if verdict == shed_mod.SHED:
+                self._shed(rid, req, now, dl, reason)
+                self.timeseries.sample()
+                return rid
+            if verdict == shed_mod.PARK:
+                self._park(rid, req, now, dl, reason)
+                self.timeseries.sample()
+                return rid
         key = (
             -int(req.priority),
             0 if dl is not None else 1,  # deadline-less requests last
@@ -600,7 +766,7 @@ class SNNStreamEngine:
             return torch.from_numpy(a.copy())
         ready = self._pinned_ready[s]
         ready.synchronize()  # the previous copy out of this buffer is done
-        host = self._pinned[s][: a.size].view(a.shape)
+        host = self._pinned[s].view(torch.float32)[: a.size].view(a.shape)
         host.numpy()[...] = a
         out = torch.empty(a.shape, dtype=torch.float32, device=self.device)
         out.copy_(host, non_blocking=True)
@@ -643,6 +809,7 @@ class SNNStreamEngine:
         self._m_qwait.record(self._slot_admit_t[s] - t_submit)
         self._slot_deadline[s] = abs_deadline
         self._slot_rel_deadline[s] = req.deadline_s
+        self._slot_priority[s] = int(req.priority)
         self._slot_counts[s] = 0.0
         self._slot_memsum[s] = 0.0
         self._slot_events[s] = 0.0
@@ -660,10 +827,107 @@ class SNNStreamEngine:
         meta["done"][s] = 0
         meta["total"][s] = T
         meta["admit"][s] = 1
+        if not self.fault_checks:
+            meta["fault"][s] = 0
+            return
         # a step with more nonzero inputs than C would be truncated
         # silently by the packed table: flag it for quarantine
         over = torch.any(torch.sum(train != 0, dim=-1) > self.C)
         meta["fault"][s] = over.to(torch.int32) * FAULT_CAPACITY_OVERFLOW
+
+    # --------------------------------------------------- admission plane
+    def _void_result(
+        self,
+        rid: int,
+        req: StreamRequest,
+        t_submit: float,
+        *,
+        disposition: str,
+        fault: Optional[str],
+    ) -> StreamResult:
+        """A result that carries a disposition instead of an inference: no
+        prediction, no stats, no deadline verdict (the request was never
+        served, so it neither met nor missed anything)."""
+        cfg = self.cfg
+        now = time.perf_counter()
+        return StreamResult(
+            request_id=rid,
+            prediction=-1,
+            spike_counts=np.zeros(cfg.layer_sizes[-1]),
+            steps=self._resolve_steps(req),
+            latency_s=now - t_submit,
+            queue_wait_s=now - t_submit,
+            events_per_layer=np.zeros(cfg.num_layers),
+            spike_rate=0.0,
+            energy_pj=0.0,
+            deadline_s=req.deadline_s,
+            deadline_missed=False,
+            disposition=disposition,
+            fault=fault,
+        )
+
+    def _shed(
+        self,
+        rid: int,
+        req: StreamRequest,
+        t_submit: float,
+        abs_deadline: Optional[float],
+        reason: str,
+    ) -> None:
+        self._m_shed.inc()
+        self.trace.instant(
+            "shed", time.perf_counter(), track="queue",
+            args={"rid": rid, "reason": reason},
+        )
+        self._pending_results.append(self._void_result(
+            rid, req, t_submit, disposition="shed", fault=reason
+        ))
+
+    def _park(
+        self,
+        rid: int,
+        req: StreamRequest,
+        t_submit: float,
+        abs_deadline: Optional[float],
+        reason: str,
+    ) -> None:
+        self._m_parked_total.inc()
+        self._parked.append((rid, req, t_submit, abs_deadline))
+        self._m_parked_depth.set(len(self._parked))
+        self.trace.instant(
+            "park", time.perf_counter(), track="queue",
+            args={"rid": rid, "reason": reason},
+        )
+
+    def measured_ticks_per_s(self, window_s: Optional[float] = None) -> float:
+        """Tick throughput off the time-series sampler (trailing
+        ``window_s``, falling back to the whole series when the window
+        saw no flow): the evidence the feasibility shedder turns into a
+        completion-time lower bound.  0.0 on a cold engine.  Wall-clock
+        state: it follows how fast the tick runs on this machine."""
+        key = "engine.tick.dispatch_s.count"
+        r = self.timeseries.rate(key, window_s)
+        if r <= 0.0:
+            r = self.timeseries.rate(key, None)
+        return r
+
+    def _admission_verdict(
+        self, req: StreamRequest, abs_deadline: Optional[float]
+    ) -> Tuple[str, Optional[str]]:
+        """Feasibility check when a queued request wins a free slot."""
+        if self.admission is None or not self.admission.shed_unmeetable:
+            return shed_mod.ADMIT, None
+        return shed_mod.feasibility(
+            self.admission,
+            steps=self._resolve_steps(req),
+            chunk_steps=self.Tc,
+            deadline_abs=abs_deadline,
+            now=time.perf_counter(),
+            ticks_per_s=self.measured_ticks_per_s(
+                self.admission.rate_window_s
+            ),
+            priority=req.priority,
+        )
 
     # ------------------------------------------------------------- chunk
     def _chunk(self, prepared, states, ring, meta, stats) -> None:
@@ -704,26 +968,35 @@ class SNNStreamEngine:
         # per-slot fault bitmask, masked to the request's own window;
         # faulted slots are zeroed here so they never contaminate a later
         # occupant (a bit-exact no-op for clean slots)
-        bad_state = torch.zeros_like(in_window[:, 0])
-        for st in new_states:
-            bad_state = bad_state | ~torch.isfinite(st.u).all(dim=-1)
-        bad_count = ((counts < 0) | (counts > C)).any(dim=-1)
-        ev_valid = in_window[:, :, None] & (
-            self._lane_ids[None, None, :]
-            < torch.clamp(counts, 0, C)[:, :, None]
-        )
-        a32 = a_c.to(torch.int32)
-        bad_addr = (
-            (ev_valid & ((a32 < 0) | (a32 >= cfg.layer_sizes[0])))
-            .flatten(1)
-            .any(dim=1)
-        )
-        fault = (
-            meta["fault"]
-            | bad_state.to(torch.int32) * FAULT_NONFINITE_STATE
-            | (bad_count | bad_addr).to(torch.int32) * FAULT_RING_CORRUPT
-        )
-        poisoned = (fault > 0)[:, None]
+        fault = meta["fault"]
+        if self.fault_checks:
+            bad_state = torch.zeros_like(in_window[:, 0])
+            for st in new_states:
+                bad_state = bad_state | ~torch.isfinite(st.u).all(dim=-1)
+            bad_count = ((counts < 0) | (counts > C)).any(dim=-1)
+            ev_valid = in_window[:, :, None] & (
+                self._lane_ids[None, None, :]
+                < torch.clamp(counts, 0, C)[:, :, None]
+            )
+            a32 = a_c.to(torch.int32)
+            bad_addr = (
+                (ev_valid & ((a32 < 0) | (a32 >= cfg.layer_sizes[0])))
+                .flatten(1)
+                .any(dim=1)
+            )
+            fault = (
+                fault
+                | bad_state.to(torch.int32) * FAULT_NONFINITE_STATE
+                | (bad_count | bad_addr).to(torch.int32) * FAULT_RING_CORRUPT
+            )
+            poisoned = (fault > 0)[:, None]
+            new_states = [
+                neuron.NeuronState(
+                    u=torch.where(poisoned, 0.0, new.u),
+                    refrac=torch.where(poisoned, 0, new.refrac),
+                )
+                for new in new_states
+            ]
         # per-slot stats over the request's own steps only
         m = (self._step_ids[:, None] < take[None, :]).to(torch.float32)
         torch.cat([
@@ -734,8 +1007,8 @@ class SNNStreamEngine:
         ], out=stats)
         # the writes, after every read of the buffers they overwrite
         for st, new in zip(states, new_states):
-            st.u.copy_(torch.where(poisoned, 0.0, new.u))
-            st.refrac.copy_(torch.where(poisoned, 0, new.refrac))
+            st.u.copy_(new.u)
+            st.refrac.copy_(new.refrac)
         meta["done"].add_(take)
         meta["admit"].zero_()
         # staged fault bits report exactly once, then clear
@@ -784,10 +1057,10 @@ class SNNStreamEngine:
         nonzero means some dispatch path is not static."""
         return int(self._m_recompiles.value)
 
-    def _dispatch_chunk(self, take: np.ndarray) -> None:
+    def _run_chunk(self) -> None:
+        """One chunk over the static buffers: the graph's replay, or the
+        eager chunk (the CPU, the plain backends, a demoted engine)."""
         if self.graphed:
-            if self._graph is None:
-                self._capture()
             self._graph.replay()
             self.graph_replays += 1
         else:
@@ -795,6 +1068,35 @@ class SNNStreamEngine:
                 self._prepared, self._states, self._ring, self._meta,
                 self._stats,
             )
+
+    def _demote(self):
+        """The supervisor's fallback after persistent ``fused`` failures:
+        the plain ``torch`` chunk, run eagerly over the same buffers; the
+        graph is dropped.  Returns the attempt to retry."""
+        self.backend = "torch"
+        self.graphed = False
+        self._graph = None
+        return self._attempt
+
+    def _attempt(self) -> None:
+        """One supervised dispatch attempt: an injected fault raises
+        before the chunk writes any buffer, so the attempt may run
+        again."""
+        if self.injector is not None:
+            self.injector.maybe_raise(self.backend)
+        self._run_chunk()
+
+    def _dispatch_chunk(self, take: np.ndarray) -> None:
+        # the graph's capture stays outside the supervised attempt (the
+        # kernel was built at construction): a failed capture raises,
+        # never retries or demotes
+        if self.graphed and self._graph is None:
+            self._capture()
+        self._supervisor.call(
+            self._attempt,
+            backend=self.backend,
+            demote=self._demote if self.backend == "fused" else None,
+        )
         # start the stats' trip to the host now, so reading them later
         # waits for this chunk only, not for chunks dispatched after it
         i = self._host_next
@@ -814,7 +1116,16 @@ class SNNStreamEngine:
         A steady mid-window tick uploads nothing, allocates nothing on the
         card or in pinned memory, and reads the host once (``_fetch``)."""
         S, Tc = self.S, self.Tc
+        tick = self._tick_index
         self._tick_index += 1
+        if self.injector is not None:
+            applied = self.injector.begin_tick(self, tick)
+            if applied:
+                self._m_injected.inc(len(applied))
+            if self.injector.stalled(tick):
+                # an injected stall: the tick makes no progress at all,
+                # the wedge drain(timeout_s=...) must survive
+                return []
         t0 = time.perf_counter()
         take = np.zeros(S, np.int32)
         for s in range(S):
@@ -931,8 +1242,10 @@ class SNNStreamEngine:
             deadline_missed=False,
             disposition="quarantined",
             fault=names,
+            parked=self._slot_parked[s],
         ))
         self._slot_req[s] = None
+        self._slot_parked[s] = False
 
     def _finalize(self, s: int) -> StreamResult:
         cfg = self.cfg
@@ -975,29 +1288,619 @@ class SNNStreamEngine:
             energy_pj=oc.energy_pj(),
             deadline_s=self._slot_rel_deadline[s],
             deadline_missed=missed,
+            parked=self._slot_parked[s],
         )
         self._slot_req[s] = None
+        self._slot_parked[s] = False
         return res
+
+    # ------------------------------------------------------ device rows
+    def _host_copy(self, t: torch.Tensor) -> np.ndarray:
+        """A host copy of ``t`` (never a view of an engine buffer)."""
+        return t.detach().to("cpu", copy=True).numpy()
+
+    def _slot_views(
+        self, s: int, r: Optional[int] = None
+    ) -> List[torch.Tensor]:
+        """Slot ``s``'s rows of the chunk's buffers, in a fixed order:
+        each layer's membrane and refractory row, the first ``r`` steps
+        (all by default) of its ring rows, its metadata."""
+        views = []
+        for st in self._states:
+            views += [st.u[s], st.refrac[s]]
+        views += [buf[s, :r] for buf in self._ring.values()]
+        views += [buf[s:s + 1] for buf in self._meta.values()]
+        return views
+
+    def _put_rows(self, s: int, pairs) -> None:
+        """Write host arrays into views of the engine's buffers in place,
+        ``pairs`` of (view, array) for slot ``s``.  On the card the arrays
+        are packed into the slot's pinned staging buffer and copied from
+        it on the current stream, ahead of the next replay that reads
+        them; the buffer's event keeps it from being refilled before the
+        copies are done."""
+        if self.device.type != "cuda":
+            for dst, arr in pairs:
+                src = torch.from_numpy(np.ascontiguousarray(arr))
+                dst.copy_(src.reshape(dst.shape))
+            return
+        ready = self._pinned_ready[s]
+        ready.synchronize()  # the previous copy out of this buffer is done
+        raw, off = self._pinned[s], 0
+        for dst, arr in pairs:
+            n = dst.numel() * dst.element_size()
+            if off + n > raw.numel():
+                raise RuntimeError(
+                    f"slot {s}'s rows do not fit its pinned staging "
+                    f"({raw.numel()} bytes)"
+                )
+            host = raw[off:off + n].view(dst.dtype).view(dst.shape)
+            host.numpy()[...] = np.asarray(arr).reshape(dst.shape)
+            dst.copy_(host, non_blocking=True)
+            off += -(-n // 16) * 16
+        ready.record()
+
+    # -------------------------------------------------------- preemption
+    def _drain_inflight(self) -> None:
+        """Retire every pipelined chunk's stats, finalizing the requests
+        they complete into the pending results: the consistency point
+        ``snapshot`` and parking need.  Afterwards ``_slot_retired ==
+        _slot_done`` for every resident slot, so host accumulators match
+        the device state."""
+        while self._inflight:
+            for s in self._retire():
+                self._pending_results.append(self._finalize(s))
+
+    def _slot_key(self, s: int):
+        """Urgency key of slot ``s``'s resident request, comparable with
+        the admission heap's key prefix (priority desc, deadline-less
+        last, EDF)."""
+        dl = self._slot_deadline[s]
+        return (
+            -int(self._slot_priority[s]),
+            0 if dl is not None else 1,
+            dl if dl is not None else 0.0,
+        )
+
+    def _best_preempt_key(self) -> Optional[Tuple]:
+        """(key, index) of the most urgent preempt-parked window, or None
+        when the buffer is empty."""
+        best = None
+        for i, rec in enumerate(self._preempt_parked):
+            dl = rec["abs_deadline"]
+            k = (
+                -int(rec["priority"]),
+                0 if dl is not None else 1,
+                dl if dl is not None else 0.0,
+            )
+            if best is None or k < best[0]:
+                best = (k, i)
+        return best
+
+    def _victim(self, head_key) -> Optional[int]:
+        """The loosest resident slot *strictly* looser than ``head_key``,
+        or None: an equal-urgency arrival never displaces a running window
+        (ties would swap-thrash)."""
+        worst, worst_key = None, None
+        for s in range(self.S):
+            if self._slot_req[s] is None:
+                continue
+            k = self._slot_key(s)
+            if worst_key is None or k > worst_key:
+                worst, worst_key = s, k
+        if worst is None or not (head_key < worst_key):
+            return None
+        return worst
+
+    def _maybe_preempt(self) -> None:
+        """Park the loosest resident window when the queue head is
+        strictly more urgent and no slot is free (``preempt=True`` only).
+        At most one park a poll round; the freed slot takes the urgent
+        request in the same round."""
+        if not self.preempt or not self._queue:
+            return
+        if any(r is None for r in self._slot_req):
+            return  # a free slot serves the arrival without displacement
+        head_key = self._queue[0][0][:3]
+        if self._victim(head_key) is None:
+            return
+        # retire pipelined stats before parking: retirement may complete a
+        # slot outright (cheaper than a park/resume round trip), and
+        # parking needs retired == done; a parked slot with a chunk still
+        # in flight would drop that chunk's stats at _retire's slot-reuse
+        # guard
+        self._drain_inflight()
+        if any(r is None for r in self._slot_req):
+            return
+        v = self._victim(head_key)
+        if v is not None:
+            self._park_slot(v)
+
+    def _park_slot(self, s: int) -> None:
+        """Preempt slot ``s``: read its membrane/refractory rows, ring row
+        and host accumulators into the parking buffer and free the slot.
+        The caller has drained the stats pipeline.  Inverse of
+        ``_resume_slot``; the round trip is bit-exact."""
+        t0 = time.perf_counter()
+        rid = self._slot_req[s]
+        rec = {
+            "rid": rid,
+            "priority": int(self._slot_priority[s]),
+            "done": int(self._slot_retired[s]),
+            "total": int(self._slot_total[s]),
+            "parked": bool(self._slot_parked[s]),
+            "ring_steps": self._ring_steps,
+            "rel_deadline": self._slot_rel_deadline[s],
+            "abs_deadline": self._slot_deadline[s],
+            "t_submit": float(self._slot_submit_t[s]),
+            "t_admit": float(self._slot_admit_t[s]),
+            "u": [self._host_copy(st.u[s]) for st in self._states],
+            "refrac": [self._host_copy(st.refrac[s]) for st in self._states],
+            "ring_addrs": self._host_copy(self._ring["addrs"][s]),
+            "ring_values": self._host_copy(self._ring["values"][s]),
+            "ring_counts": self._host_copy(self._ring["counts"][s]),
+            "counts": self._slot_counts[s].copy(),
+            "memsum": self._slot_memsum[s].copy(),
+            "events": self._slot_events[s].copy(),
+        }
+        self._preempt_parked.append(rec)
+        # free the slot: total = 0 makes the next chunk take nothing from
+        # it; the stale device rows are dead weight until overwritten
+        for buf in self._meta.values():
+            buf[s] = 0
+        self._slot_req[s] = None
+        self._slot_parked[s] = False
+        t1 = time.perf_counter()
+        self._m_preempt_parked.inc()
+        self._m_preempt_events.inc(float(rec["events"].sum()))
+        self._m_park_time.record(t1 - t0)
+        self._m_preempt_depth.set(len(self._preempt_parked))
+        self.trace.span(
+            "park", t0, t1, track=f"slot{s}",
+            args={"rid": rid, "done": rec["done"], "total": rec["total"]},
+        )
+
+    def _resume_slot(self, s: int, rec: Dict) -> None:
+        """Admit a preempt-parked window into free slot ``s``, writing its
+        state and ring rows back in place.  The admit flag stays 0 (the
+        chunk must not zero the restored membranes), so the window
+        continues from exactly the step it was parked at."""
+        t0 = time.perf_counter()
+        if rec["ring_steps"] > self._ring_steps:
+            # only across a restore onto a smaller-ring engine: grow back
+            # so the stored row fits (the allowlisted re-capture site)
+            self._grow_ring(rec["ring_steps"])
+        meta = {"done": rec["done"], "total": rec["total"], "admit": 0,
+                "fault": 0}
+        rows = [a for u, rf in zip(rec["u"], rec["refrac"]) for a in (u, rf)]
+        rows += [rec[f"ring_{k}"] for k in self._ring]
+        rows += [np.array([meta[k]], np.int32) for k in self._meta]
+        views = self._slot_views(s, rec["ring_addrs"].shape[0])
+        self._put_rows(s, list(zip(views, rows)))
+        self._slot_req[s] = rec["rid"]
+        self._slot_parked[s] = rec["parked"]
+        self._slot_priority[s] = rec["priority"]
+        self._slot_done[s] = rec["done"]
+        self._slot_retired[s] = rec["done"]
+        self._slot_total[s] = rec["total"]
+        self._slot_submit_t[s] = rec["t_submit"]
+        self._slot_admit_t[s] = rec["t_admit"]
+        self._slot_deadline[s] = rec["abs_deadline"]
+        self._slot_rel_deadline[s] = rec["rel_deadline"]
+        self._slot_counts[s] = rec["counts"]
+        self._slot_memsum[s] = rec["memsum"]
+        self._slot_events[s] = rec["events"]
+        t1 = time.perf_counter()
+        self._m_preempt_resumed.inc()
+        self._m_restore_time.record(t1 - t0)
+        self._m_preempt_depth.set(len(self._preempt_parked))
+        self.trace.span(
+            "resume", t0, t1, track=f"slot{s}",
+            args={"rid": rec["rid"], "done": rec["done"],
+                  "total": rec["total"]},
+        )
+
+    # --------------------------------------------------- crash-safe state
+    def snapshot(self, path: str) -> str:
+        """Serialize the engine's complete serving state into the
+        directory ``path``: per-slot membrane/refractory states, the
+        packed rings, the scheduling metadata, host bookkeeping, the
+        admission queue, parked requests, the preemption buffer,
+        undelivered results, the generator's state and the fault log.
+        Atomic (tmp dir + rename + per-array crc32 through the checkpoint
+        plane): a crash mid-snapshot leaves the previous one intact.
+
+        The arrays and manifest keys are the reference engine's, so a
+        snapshot the reference wrote restores here; the random state is
+        the one difference: the port stores its generator's state as
+        ``rng_state`` where the reference stores ``rng_key``.
+        Wall-clock state is stored as remaining deadline budgets and
+        ages, which :meth:`restore` re-anchors."""
+        t0 = time.perf_counter()
+        # consistency point: retire all pipelined stats (finalizing any
+        # windows they complete) so host accumulators match device state
+        self._drain_inflight()
+        now = time.perf_counter()
+        arrays: Dict[str, np.ndarray] = {}
+        for i, st in enumerate(self._states):
+            arrays[f"state{i}_u"] = self._host_copy(st.u)
+            arrays[f"state{i}_refrac"] = self._host_copy(st.refrac)
+        for k, v in self._ring.items():
+            arrays[f"ring_{k}"] = self._host_copy(v)
+        for k, v in self._meta.items():
+            arrays[f"meta_{k}"] = self._host_copy(v)
+        arrays["rng_state"] = self._gen.get_state().numpy().copy()
+        for name in ("done", "retired", "total", "priority"):
+            arrays[f"slot_{name}"] = getattr(self, f"_slot_{name}").copy()
+        arrays["slot_counts"] = self._slot_counts.copy()
+        arrays["slot_memsum"] = self._slot_memsum.copy()
+        arrays["slot_events"] = self._slot_events.copy()
+        slots = []
+        for s in range(self.S):
+            dl = self._slot_deadline[s]
+            slots.append({
+                "rid": self._slot_req[s],
+                "parked": bool(self._slot_parked[s]),
+                "rel_deadline": self._slot_rel_deadline[s],
+                "deadline_remaining_s": None if dl is None else dl - now,
+                "submit_age_s": now - float(self._slot_submit_t[s]),
+                "admit_age_s": now - float(self._slot_admit_t[s]),
+            })
+
+        def pack_req(prefix, rid, req, t_sub, dl, extra=None):
+            if req.spikes is not None:
+                arrays[f"{prefix}_spikes"] = np.asarray(req.spikes)
+            else:
+                arrays[f"{prefix}_image"] = np.asarray(req.image)
+            doc = {
+                "rid": rid,
+                "priority": int(req.priority),
+                "num_steps": req.num_steps,
+                "deadline_s": req.deadline_s,
+                "submit_age_s": now - t_sub,
+                "deadline_remaining_s": None if dl is None else dl - now,
+            }
+            doc.update(extra or {})
+            return doc
+
+        queue_docs = [
+            pack_req(f"q{i}", rid, req, t_sub, dl, {"seq": key[3]})
+            for i, (key, rid, req, t_sub, dl) in enumerate(sorted(
+                self._queue, key=lambda e: e[0]))
+        ]
+        parked_docs = [
+            pack_req(f"p{i}", rid, req, t_sub, dl)
+            for i, (rid, req, t_sub, dl) in enumerate(self._parked)
+        ]
+        pp_docs = []
+        for i, rec in enumerate(self._preempt_parked):
+            for layer in range(len(rec["u"])):
+                arrays[f"pp{i}_u{layer}"] = rec["u"][layer]
+                arrays[f"pp{i}_refrac{layer}"] = rec["refrac"][layer]
+            for k in ("ring_addrs", "ring_values", "ring_counts",
+                      "counts", "memsum", "events"):
+                arrays[f"pp{i}_{k}"] = rec[k]
+            dl = rec["abs_deadline"]
+            pp_docs.append({
+                "rid": rec["rid"],
+                "priority": rec["priority"],
+                "done": rec["done"],
+                "total": rec["total"],
+                "parked": rec["parked"],
+                "ring_steps": rec["ring_steps"],
+                "rel_deadline": rec["rel_deadline"],
+                "deadline_remaining_s": None if dl is None else dl - now,
+                "submit_age_s": now - rec["t_submit"],
+                "admit_age_s": now - rec["t_admit"],
+            })
+        manifest = {
+            "kind": "snn_engine_snapshot",
+            "geometry": {
+                "num_slots": self.S,
+                "chunk_steps": self.Tc,
+                "event_capacity": self.C,
+                "ring_steps": self._ring_steps,
+                "layer_sizes": list(self.cfg.layer_sizes),
+            },
+            "backend": self.backend,
+            "tick_index": self._tick_index,
+            "seq": self._seq,
+            "next_rid": self._next_rid,
+            "snap_index": self._snap_index,
+            "episode_open": self._episode_open,
+            "episode_age_s": (
+                now - self._episode_t0 if self._episode_open else 0.0
+            ),
+            "slots": slots,
+            "queue": queue_docs,
+            "parked": parked_docs,
+            "preempt_parked": pp_docs,
+            "pending_results": [
+                _doc_result(r) for r in self._pending_results
+            ],
+            "fault_events": list(self.fault_events),
+        }
+        path = os.path.normpath(path)
+        out = publish_array_dir(
+            os.path.dirname(path) or ".", os.path.basename(path), arrays,
+            manifest,
+        )
+        t1 = time.perf_counter()
+        self._m_snap_time.record(t1 - t0)
+        self.trace.span("snapshot", t0, t1, track="engine",
+                        args={"path": out})
+        return out
+
+    def restore(self, path: str) -> None:
+        """Load a snapshot written by :meth:`snapshot` (or by the
+        reference engine's) into this engine, built with the same params
+        and config.  Raises :class:`CheckpointCorruptError` when the
+        snapshot fails its checksums, ValueError on a geometry mismatch.
+
+        The arrays are copied **into the existing buffers**: the CUDA
+        graph holds their addresses, so an engine that has captured keeps
+        its graph and re-captures nothing.  A snapshot whose ring is
+        longer than this engine's grows the ring first (``_grow_ring``,
+        the one allowed re-capture site); a shorter one fills the head of
+        the ring.  The tick-phase histograms and the re-capture count are
+        the engine's lifetime and survive.
+
+        A reference snapshot carries a threefry ``rng_key`` where the
+        port stores ``rng_state``: the generator is then seeded from the
+        key's words, so the draws of images admitted after such a restore
+        differ from the reference's by design (torch cannot reproduce the
+        threefry stream); spike-train requests are unaffected.  The
+        manifest's ``backend`` is recorded in the restore span, the
+        reference's ``"jnp"`` read as the port's ``"torch"``."""
+        t_start = time.perf_counter()
+        path = os.path.normpath(path)
+        arrays, manifest = load_array_dir(path)
+        if manifest.get("kind") != "snn_engine_snapshot":
+            raise ValueError(f"{path} is not an engine snapshot")
+        g = manifest["geometry"]
+        want = {
+            "num_slots": self.S,
+            "chunk_steps": self.Tc,
+            "event_capacity": self.C,
+            "layer_sizes": list(self.cfg.layer_sizes),
+        }
+        got = {k: g.get(k) for k in want}
+        if got != want:
+            raise ValueError(
+                f"snapshot geometry mismatch: snapshot {got} != engine {want}"
+            )
+        self._reset_host()
+        if int(g["ring_steps"]) > self._ring_steps:
+            self._grow_ring(int(g["ring_steps"]))
+        now = time.perf_counter()
+        try:
+            # the snapshot's arrays in the order of _slot_views
+            names = [f"state{i}_{k}" for i in range(len(self._states))
+                     for k in ("u", "refrac")]
+            names += [f"ring_{k}" for k in self._ring]
+            names += [f"meta_{k}" for k in self._meta]
+            r = arrays["ring_counts"].shape[1]
+            for buf in self._ring.values():
+                buf[:, r:].zero_()
+            for s in range(self.S):
+                rows = [arrays[k][s:s + 1] for k in names]
+                self._put_rows(s, list(zip(self._slot_views(s, r), rows)))
+            if "rng_state" in arrays:
+                self._gen.set_state(torch.from_numpy(arrays["rng_state"]))
+            else:
+                self._gen.manual_seed(_seed_from_key(arrays["rng_key"]))
+            self._slot_done = arrays["slot_done"].astype(np.int64)
+            self._slot_retired = arrays["slot_retired"].astype(np.int64)
+            self._slot_total = arrays["slot_total"].astype(np.int64)
+            self._slot_priority = arrays["slot_priority"].astype(np.int64)
+            self._slot_counts = arrays["slot_counts"].astype(np.float64)
+            self._slot_memsum = arrays["slot_memsum"].astype(np.float64)
+            self._slot_events = arrays["slot_events"].astype(np.float64)
+            for s, doc in enumerate(manifest["slots"]):
+                self._slot_req[s] = doc["rid"]
+                self._slot_parked[s] = bool(doc["parked"])
+                self._slot_rel_deadline[s] = doc["rel_deadline"]
+                rem = doc["deadline_remaining_s"]
+                self._slot_deadline[s] = None if rem is None else now + rem
+                self._slot_submit_t[s] = now - doc["submit_age_s"]
+                self._slot_admit_t[s] = now - doc["admit_age_s"]
+
+            def unpack_req(prefix, doc):
+                kw = dict(
+                    num_steps=doc["num_steps"],
+                    deadline_s=doc["deadline_s"],
+                    priority=doc["priority"],
+                )
+                if f"{prefix}_spikes" in arrays:
+                    req = StreamRequest(spikes=arrays[f"{prefix}_spikes"], **kw)
+                else:
+                    req = StreamRequest(image=arrays[f"{prefix}_image"], **kw)
+                rem = doc["deadline_remaining_s"]
+                dl = None if rem is None else now + rem
+                return req, now - doc["submit_age_s"], dl
+
+            for i, doc in enumerate(manifest["queue"]):
+                req, t_sub, dl = unpack_req(f"q{i}", doc)
+                key = (
+                    -int(req.priority),
+                    0 if dl is not None else 1,
+                    dl if dl is not None else 0.0,
+                    doc["seq"],
+                )
+                heapq.heappush(self._queue, (key, doc["rid"], req, t_sub, dl))
+            for i, doc in enumerate(manifest["parked"]):
+                req, t_sub, dl = unpack_req(f"p{i}", doc)
+                self._parked.append((doc["rid"], req, t_sub, dl))
+            n_layers = len(self._states)
+            for i, doc in enumerate(manifest["preempt_parked"]):
+                rem = doc["deadline_remaining_s"]
+                self._preempt_parked.append({
+                    "rid": doc["rid"],
+                    "priority": int(doc["priority"]),
+                    "done": int(doc["done"]),
+                    "total": int(doc["total"]),
+                    "parked": bool(doc["parked"]),
+                    "ring_steps": int(doc["ring_steps"]),
+                    "rel_deadline": doc["rel_deadline"],
+                    "abs_deadline": None if rem is None else now + rem,
+                    "t_submit": now - doc["submit_age_s"],
+                    "t_admit": now - doc["admit_age_s"],
+                    "u": [arrays[f"pp{i}_u{j}"] for j in range(n_layers)],
+                    "refrac": [
+                        arrays[f"pp{i}_refrac{j}"] for j in range(n_layers)
+                    ],
+                    "ring_addrs": arrays[f"pp{i}_ring_addrs"],
+                    "ring_values": arrays[f"pp{i}_ring_values"],
+                    "ring_counts": arrays[f"pp{i}_ring_counts"],
+                    "counts": arrays[f"pp{i}_counts"],
+                    "memsum": arrays[f"pp{i}_memsum"],
+                    "events": arrays[f"pp{i}_events"],
+                })
+        except KeyError as e:
+            raise CheckpointCorruptError(
+                f"array {e} missing from snapshot {path}"
+            ) from e
+        self._pending_results = [
+            _undoc_result(d) for d in manifest["pending_results"]
+        ]
+        self.fault_events = list(manifest["fault_events"])
+        self._tick_index = int(manifest["tick_index"])
+        self._seq = int(manifest["seq"])
+        self._next_rid = int(manifest["next_rid"])
+        self._snap_index = int(manifest.get("snap_index", 0))
+        self._m_qdepth.set(len(self._queue))
+        self._m_parked_depth.set(len(self._parked))
+        self._m_preempt_depth.set(len(self._preempt_parked))
+        if not self.idle():
+            self._episode_open = True
+            self._episode_t0 = now - float(manifest.get("episode_age_s", 0.0))
+        t_end = time.perf_counter()
+        self._m_restore_snap_time.record(t_end - t_start)
+        backend = manifest.get("backend")
+        self.trace.span(
+            "restore", t_start, t_end, track="engine",
+            args={"path": path, "tick": self._tick_index,
+                  "backend": "torch" if backend == "jnp" else backend},
+        )
+
+    def snapshot_auto(self, directory: str, keep_n: int = 3) -> str:
+        """Write the next snapshot of a keep-N rotation under
+        ``directory`` (``snap_NNNNNN``), pruning the oldest beyond
+        ``keep_n``; orphaned ``.tmp_*`` dirs of a killed writer are
+        garbage-collected first."""
+        os.makedirs(directory, exist_ok=True)
+        gc_orphan_tmpdirs(directory)
+        self._snap_index += 1
+        out = self.snapshot(
+            os.path.join(directory, f"snap_{self._snap_index:06d}")
+        )
+        names = sorted(
+            d for d in os.listdir(directory) if d.startswith("snap_")
+        )
+        for d in names[:-keep_n] if keep_n else []:
+            shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
+        return out
+
+    def restore_latest_snapshot(self, directory: str) -> Optional[str]:
+        """Restore the newest snapshot under ``directory`` that passes its
+        integrity check.  A corrupt one (truncated npz, checksum mismatch)
+        is skipped with a loud warning and the
+        ``engine.faults.checkpoint_fallback`` counter, falling back to the
+        previous one.  Returns the restored path, or None when no usable
+        snapshot exists."""
+        if not os.path.isdir(directory):
+            return None
+        gc_orphan_tmpdirs(directory)
+        names = sorted(
+            (
+                d for d in os.listdir(directory)
+                if d.startswith("snap_")
+                and os.path.exists(os.path.join(directory, d, "manifest.json"))
+            ),
+            reverse=True,
+        )
+        for name in names:
+            p = os.path.join(directory, name)
+            try:
+                self.restore(p)
+                return p
+            except CheckpointCorruptError as e:
+                self._m_ckpt_fallback.inc()
+                warnings.warn(
+                    f"engine snapshot {p} failed integrity check ({e}); "
+                    f"falling back to the previous snapshot",
+                    stacklevel=2,
+                )
+        return None
 
     # --------------------------------------------------------- scheduler
     def idle(self) -> bool:
-        """True when nothing is queued, resident, in flight or
-        undelivered."""
+        """True when nothing is queued, parked (admission plane or
+        preemption buffer), resident, in flight or undelivered."""
         return (
             not self._queue
+            and not self._parked
+            and not self._preempt_parked
             and all(r is None for r in self._slot_req)
             and not self._inflight
             and not self._pending_results
         )
 
-    def poll(self) -> List[StreamResult]:
-        """One scheduler round: admit queued requests into free slots,
-        dispatch the next chunk, retire pipelined stats, and return the
-        requests that finished (quarantined ones included)."""
-        for s in range(self.S):
-            if self._slot_req[s] is None and self._queue:
-                _, rid, req, t_sub, dl = heapq.heappop(self._queue)
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    def parked_depth(self) -> int:
+        return len(self._parked)
+
+    def preempt_parked_depth(self) -> int:
+        """Occupancy of the preemption buffer (displaced mid-window slots
+        awaiting resume)."""
+        return len(self._preempt_parked)
+
+    def _fill_slot(self, s: int) -> None:
+        """Admit into free slot ``s``: resume the most urgent
+        preempt-parked window when it beats (or ties) the queue head (a
+        started window wins ties, avoiding swap thrash), else pop the heap
+        in priority/EDF order, shedding (or parking) candidates the
+        feasibility check proves unmeetable, then fall back to the parked
+        FIFO when the heap empties (best-effort service, marked ``parked``
+        on the result)."""
+        while True:
+            best = self._best_preempt_key()
+            if best is not None and (
+                not self._queue or best[0] <= self._queue[0][0][:3]
+            ):
+                self._resume_slot(s, self._preempt_parked.pop(best[1]))
+                return
+            if not self._queue:
+                break
+            _, rid, req, t_sub, dl = heapq.heappop(self._queue)
+            verdict, reason = self._admission_verdict(req, dl)
+            if verdict == shed_mod.ADMIT:
                 self._admit(s, rid, req, t_sub, dl)
+                return
+            if verdict == shed_mod.PARK:
+                self._park(rid, req, t_sub, dl, reason)
+            else:
+                self._shed(rid, req, t_sub, dl, reason)
+        if self._parked:
+            rid, req, t_sub, dl = self._parked.popleft()
+            self._m_parked_depth.set(len(self._parked))
+            self._admit(s, rid, req, t_sub, dl)
+            self._slot_parked[s] = True
+
+    def poll(self) -> List[StreamResult]:
+        """One scheduler round: preempt if a more urgent request waits,
+        fill free slots (priority/EDF order, feasibility shedding under an
+        admission policy), dispatch the next chunk, retire pipelined
+        stats, and return the requests that finished, shed and
+        quarantined ones included."""
+        self._maybe_preempt()
+        for s in range(self.S):
+            if self._slot_req[s] is None and (
+                self._queue or self._parked or self._preempt_parked
+            ):
+                self._fill_slot(s)
         self._m_qdepth.set(len(self._queue))
         if all(r is None for r in self._slot_req) and not self._inflight:
             results, self._pending_results = self._pending_results, []
@@ -1050,15 +1953,25 @@ class SNNStreamEngine:
     def stall_snapshot(self) -> Dict:
         """Diagnostic view of everything that could be blocking progress:
         per-slot occupancy (request id, steps dispatched / retired /
-        total, deadline), queue depth, in-flight stats chunks and the tick
-        index.  The parked lists are empty: the port does not park yet."""
+        total, deadline, parked flag), queue and parked depths with the
+        parked request ids and the preemption buffer, in-flight stats
+        chunks and the tick index."""
         return {
             "tick": self._tick_index,
             "queue_depth": len(self._queue),
-            "parked_depth": 0,
-            "parked_rids": [],
-            "preempt_parked_depth": 0,
-            "preempt_parked": [],
+            "parked_depth": len(self._parked),
+            "parked_rids": [rid for rid, _, _, _ in self._parked],
+            "preempt_parked_depth": len(self._preempt_parked),
+            "preempt_parked": [
+                {
+                    "rid": rec["rid"],
+                    "priority": rec["priority"],
+                    "done": rec["done"],
+                    "total": rec["total"],
+                    "deadline_s": rec["rel_deadline"],
+                }
+                for rec in self._preempt_parked
+            ],
             "inflight": len(self._inflight),
             "pending_results": len(self._pending_results),
             "backend": self.backend,
@@ -1070,7 +1983,7 @@ class SNNStreamEngine:
                     "retired": int(self._slot_retired[s]),
                     "total": int(self._slot_total[s]),
                     "deadline_s": self._slot_rel_deadline[s],
-                    "parked": False,
+                    "parked": self._slot_parked[s],
                 }
                 for s in range(self.S)
             ],
@@ -1099,6 +2012,12 @@ class SNNStreamEngine:
         """Fraction of this episode's ok completions that missed their
         deadline (requests without a deadline count as met)."""
         return self.deadline_misses / max(self.completed, 1)
+
+    def shed_rate(self) -> float:
+        """Lifetime fraction of submitted requests the admission plane
+        shed (parked requests are served best-effort, not shed).  0.0
+        with no admission policy."""
+        return self._m_shed.value / max(self._m_submitted.value, 1.0)
 
     def reset_tick_stats(self) -> None:
         """Zero the tick-phase instruments (e.g. after a warm-up episode,

@@ -762,3 +762,190 @@ def test_failed_capture_raises_on_card(cuda_device, monkeypatch):
     assert eng.dispatched_ticks == 0 and not eng._inflight
     assert chunk.snn_chunk.launches == before + 1  # the warm-up, on copies
     assert not eng._stats.any()
+
+
+# ------------------------ faults, preemption and snapshots on the graph
+def _buffer_ptrs(eng):
+    out = [st.u for st in eng._states] + [st.refrac for st in eng._states]
+    out += list(eng._meta.values()) + list(eng._ring.values()) + [eng._stats]
+    return [t.data_ptr() for t in out]
+
+
+@pytest.mark.cuda
+def test_injected_nan_reaches_the_graphed_chunk_on_card(cuda_device):
+    """The injector writes the NaN into the static buffer in place, so the
+    replayed chunk sees it: that slot's request is quarantined, every
+    other request equals the fault-free graph run."""
+    from repro_torch.faults import Fault, FaultInjector, FaultSchedule
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    trains = _serving_trains([25] * 10, seed=6)
+    clean = _serving_engine(cuda_device)
+    want = clean.run([StreamRequest(spikes=x) for x in trains])
+    inj = FaultInjector(FaultSchedule(faults=(
+        Fault(tick=2, kind="nan_membrane", slot=3, layer=0),)))
+    eng = _serving_engine(cuda_device, injector=inj)
+    got = eng.run([StreamRequest(spikes=x) for x in trains])
+    assert len(inj.applied) == 1 and inj.applied[0]["slot"] == 3
+    bad = inj.applied[0]["rid"]
+    assert [r.request_id for r in got if r.disposition != "ok"] == [bad]
+    assert got[bad].fault == "nonfinite_state"
+    assert [_fields(r) for r in got if r.request_id != bad] == [
+        _fields(r) for r in want if r.request_id != bad]
+    assert eng.graph_replays == eng.dispatched_ticks
+    assert eng.graph_captures == 1 and eng.steady_state_recompiles() == 0
+
+
+@pytest.mark.cuda
+def test_park_and_resume_keep_buffers_and_capture_nothing_on_card(cuda_device):
+    """Parking reads a slot's rows back and resuming writes them in place
+    through pinned buffers: no chunk buffer moves, nothing is captured
+    again, and every result equals the run without preemption."""
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    loose = _serving_trains([25] * 8, seed=7)
+    tight = _serving_trains([5, 5], seed=8)
+
+    def run(eng, check=None):
+        for x in loose:
+            eng.submit(StreamRequest(spikes=x, deadline_s=1e4))
+        results = eng.poll()
+        for x in tight:
+            eng.submit(StreamRequest(spikes=x, num_steps=5, deadline_s=5.0))
+        while not eng.idle():
+            results += eng.poll()
+            if check is not None:
+                check()
+        return sorted(results, key=lambda r: r.request_id)
+
+    want = run(_serving_engine(cuda_device))
+    eng = _serving_engine(cuda_device, preempt=True)
+    ptrs = []
+
+    def same_buffers():
+        ptrs.append(_buffer_ptrs(eng))
+        assert ptrs[-1] == ptrs[0]
+
+    got = run(eng, same_buffers)
+    snap = eng.metrics_snapshot()
+    assert snap["engine.preempt.parked"]["value"] >= 1
+    assert (snap["engine.preempt.resumed"]["value"]
+            == snap["engine.preempt.parked"]["value"])
+    assert [_fields(r) for r in got] == [_fields(r) for r in want]
+    assert eng.graph_captures == 1 and eng.steady_state_recompiles() == 0
+    assert eng.graph_replays == eng.dispatched_ticks
+
+
+@pytest.mark.cuda
+def test_restore_into_a_captured_engine_recaptures_nothing_on_card(
+        cuda_device, tmp_path):
+    """Restore copies the snapshot into the buffers the graph holds: an
+    engine that has captured keeps its graph, and finishes the windows
+    with the uninterrupted run's results."""
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    trains = _serving_trains([25, 20, 25, 15, 25, 25, 10, 25, 25, 25],
+                             seed=9)
+    reqs = [StreamRequest(spikes=x, num_steps=x.shape[0]) for x in trains]
+    want = _serving_engine(cuda_device).run(reqs)
+    eng1 = _serving_engine(cuda_device)
+    for r in reqs:
+        eng1.submit(r)
+    early = eng1.poll() + eng1.poll()
+    path = eng1.snapshot(str(tmp_path / "snap"))
+    eng2 = _serving_engine(cuda_device)
+    eng2.run(reqs[:1])
+    before, ptrs = eng2.graph_captures, _buffer_ptrs(eng2)
+    eng2.restore(path)
+    assert _buffer_ptrs(eng2) == ptrs
+    got = sorted(early + eng2.drain(), key=lambda r: r.request_id)
+    assert [_fields(r) for r in got] == [_fields(r) for r in want]
+    assert eng2.graph_captures == before == 1
+    assert eng2.steady_state_recompiles() == 0
+    assert eng2.graph_replays == eng2.dispatched_ticks
+
+
+@pytest.mark.cuda
+def test_demotion_drops_the_graph_for_the_eager_plain_chunk_on_card(
+        cuda_device):
+    """Persistent fused failures demote the engine: one warning, the graph
+    dropped, and results equal to the plain chunk run eagerly."""
+    import warnings
+
+    from repro_torch.faults import (Fault, FaultInjector, FaultSchedule,
+                                    RetryPolicy)
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    trains = _serving_trains([25, 12, 25, 25, 7, 25, 25, 25, 20], seed=10)
+    reqs = [StreamRequest(spikes=x, num_steps=x.shape[0]) for x in trains]
+    inj = FaultInjector(FaultSchedule(faults=(Fault(
+        tick=0, kind="chunk_exception", times=10**6, only_backend="fused"),)))
+    eng = _serving_engine(cuda_device, injector=inj,
+                          retry=RetryPolicy(max_retries=1, backoff_s=0.0))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = eng.run(reqs)
+    assert sum("demoting backend fused -> torch" in str(w.message)
+               for w in caught) == 1
+    assert eng.backend == "torch" and not eng.graphed and eng._graph is None
+    assert eng.metrics.get("engine.faults.backend_demoted").value == 1
+    # captured before the first attempt, never replayed
+    assert eng.graph_captures == 1 and eng.graph_replays == 0
+    plain = _serving_engine(cuda_device, backend="torch").run(reqs)
+    assert [_fields(r) for r in got] == [_fields(r) for r in plain]
+    assert all(r.disposition == "ok" for r in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["eager_launch", "graph_launch",
+                                   "graph_replay"])
+def test_kernel_failure_raises_and_never_demotes_on_card(
+        cuda_device, monkeypatch, where):
+    """A real failure of the fused chunk on the card (the launcher's
+    non-zero return code, on an eager engine or in a graphed engine's
+    warm-up, or a failed replay) raises from ``poll()`` at once: no
+    retry, no demotion, and the plain chunk never runs in its place."""
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    eng = _serving_engine(cuda_device, slots=2,
+                          cuda_graph=where != "eager_launch")
+    trains = _serving_trains([25, 25, 25, 25], seed=11)
+    for x in trains[:2]:
+        eng.submit(StreamRequest(spikes=x))
+    if where == "graph_replay":
+        eng.poll()  # captured and replayed once
+        torch.cuda.synchronize()
+
+        class BrokenGraph:
+            def replay(self):
+                raise RuntimeError("CUDA error: an illegal memory access")
+
+        eng._graph = BrokenGraph()
+        for x in trains[2:]:
+            eng.submit(StreamRequest(spikes=x))
+    else:
+        real = _build.load
+        monkeypatch.setattr(_build, "load", lambda name: (
+            (lambda *args: 700) if name == "snn_chunk" else real(name)))
+    ticks, replays = eng.dispatched_ticks, eng.graph_replays
+    chunks = []
+    real_chunk = eng._chunk
+
+    def counted_chunk(*args):
+        chunks.append(eng.backend)
+        return real_chunk(*args)
+
+    monkeypatch.setattr(eng, "_chunk", counted_chunk)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        eng.poll()
+    snap = eng.metrics_snapshot()
+    assert snap["engine.faults.chunk_retries"]["value"] == 0
+    assert snap["engine.faults.backend_demoted"]["value"] == 0
+    assert eng.backend == "fused"
+    assert eng.graphed == (where != "eager_launch")
+    assert eng.dispatched_ticks == ticks and eng.graph_replays == replays
+    # the one failing fused chunk (the eager attempt, or the graph's
+    # warm-up before its capture); no chunk after it, plain or fused
+    assert chunks == ([] if where == "graph_replay" else ["fused"])
+    assert eng.graph_captures == (1 if where == "graph_replay" else 0)
+
