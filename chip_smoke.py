@@ -89,10 +89,36 @@ Phases, in order; any failure exits non-zero:
    corrupt newest snapshot of two falls back; snapshot ms, bytes on disk
    and restore ms).  Every phase without injected faults is checked for
    0 retries and 0 demotions, and its replays against its ticks.
-10. Prints the kernel table as one JSON line (the aer row also carries
-   the sparse and layer-1 times and every phase-5 case; the lif row its
-   second form and floor; the q115 row each shape and saturation), then
-   ``{"ok": true, ...}`` as the last line.
+10. The event input path, at full width: (a) 48 synthetic 64x64 DVS
+   recordings served by the graph engine as signed planes (4096-512-2)
+   and as two-channel planes (8192-512-2), each equal in every field to
+   the eager engine and to the engine on the plain chunk, with 0
+   re-captures and launches equal to replays plus warm-ups; ms/tick,
+   req/s, events/s and mean modelled energy beside phase 4's rate-coded
+   requests.  (b) ``capacity.autotune`` (defaults) on the counts of the
+   48 measured through ``backend="fused"``, for both input layers: the
+   counts must equal the plain chunk's (``"fused_ref"``), their layer-0
+   counts and the plan those through ``"torch"``, whose hidden counts
+   may differ where a membrane sits within rounding of the threshold
+   (its layer-0 sums run in another order: printed, not gated); the
+   engine at the plan that shrinks layer 0 serves the 48 equal to the
+   untuned engine; ``snn_chunk``'s device time at the tuned C and at
+   fan-in (equal outputs), the staged ring bytes of both;
+   ``truncation_report`` on 16 held-out recordings, fused equal to the
+   plain chunk's (torch's printed beside it), and the tuned engine's
+   ``capacity_overflow`` quarantines on them.  (c) ``event_forward_aer`` on 32 of the recordings as AER
+   streams: T x L aer launches, equal to the same call on the kernel's
+   plain version, spikes and events equal to ``event_forward`` (fused)
+   on the densified planes and membranes within 1e-5; ms a window and
+   the aer kernel's device time a window.  (d) the BCNN (64x64, 16-32-64)
+   on 64 collision images on the card with TF32 off, within 1e-4 of the
+   CPU; one training step's loss finite; ``energy_reduction`` of the
+   measured DVS events against the BCNN baselines (a 45 nm model).
+11. Prints the kernel table as one JSON line (the aer row also carries
+   the sparse and layer-1 times, every phase-5 case and the inference
+   launches of phase 10; the snn_chunk row phase 10's DVS and tuned-C
+   cases; the lif row its second form and floor; the q115 row each shape
+   and saturation), then ``{"ok": true, ...}`` as the last line.
 
 There is no CPU fallback: without a CUDA device the script exits 2.
 """
@@ -455,6 +481,19 @@ def graph_of(torch, fn, *args):
     return graph.replay
 
 
+def serve_counted(torch, eng, reqs):
+    """Serve ``reqs`` to completion with the ``snn_chunk`` counts set to 0
+    just before and read just after: (results, wall s, eager launches)."""
+    from repro_torch.kernels import snn_chunk as chunk_mod
+
+    chunk_mod.snn_chunk.launches = 0
+    chunk_mod.snn_chunk.captured = 0
+    t0 = time.perf_counter()
+    results = eng.run(reqs)
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, chunk_mod.snn_chunk.launches
+
+
 def steady_tick(torch, eng, reqs):
     """Submit ``reqs`` to a graph engine, run its first steady tick under
     ``steady_poll``, check that no chunk or host stats buffer moved, and
@@ -499,7 +538,6 @@ def phase_main(torch, dev, params_np, card):
 
     from repro_torch.configs.collision_snn import CONFIG
     from repro_torch.core import snn
-    from repro_torch.kernels import snn_chunk as chunk_mod
     from repro_torch.obs import dispatch_attribution
     from repro_torch.serving.snn_engine import SNNStreamEngine, StreamRequest
 
@@ -526,12 +564,7 @@ def phase_main(torch, dev, params_np, card):
     torch.cuda.synchronize()
 
     def serve(eng):
-        chunk_mod.snn_chunk.launches = 0
-        chunk_mod.snn_chunk.captured = 0
-        t0 = time.perf_counter()
-        results = eng.run(img_reqs + spike_reqs)
-        torch.cuda.synchronize()
-        return results, time.perf_counter() - t0, chunk_mod.snn_chunk.launches
+        return serve_counted(torch, eng, img_reqs + spike_reqs)
 
     eng = engine("fused")
     results, wall, eager = serve(eng)
@@ -634,8 +667,12 @@ def phase_main(torch, dev, params_np, card):
     busy = {name: profile_main(torch, engine("fused", cuda_graph=graphed),
                                img_reqs + spike_reqs, card, name)
             for name, graphed in (("graph", True), ("eager", False))}
+    rate_nj = statistics.mean(r.energy_pj for r in results[:len(img_reqs)]) / 1e3
     return {"launches": launches, "wall_s": wall,
-            "ticks": eng.dispatched_ticks, "busy": busy}
+            "ticks": eng.dispatched_ticks, "busy": busy,
+            "rate_coded": {"ms_tick": wall / eng.dispatched_ticks * 1e3,
+                           "req_s": len(results) / wall,
+                           "events_s": events / wall, "energy_nj": rate_nj}}
 
 
 def profile_main(torch, eng, reqs, card, name):
@@ -1747,6 +1784,334 @@ def ops_rows(hw, ops_k):
     )]
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the event input path
+# --------------------------------------------------------------------------
+DVS_HW, DVS_SERVED, DVS_HELD_OUT, AER_BATCH, BCNN_IMAGES = 64, 48, 16, 32, 64
+
+
+def dvs_inputs(torch, dev):
+    """64 synthetic 64x64 DVS recordings drawn on the card (48 to serve,
+    16 held out), as AER streams and as signed and two-channel planes."""
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.events import aer
+
+    T, P = CONFIG.num_steps, DVS_HW * DVS_HW
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    stream, labels = aer.dvs_collision_batch(
+        gen, DVS_SERVED + DVS_HELD_OUT, image_hw=DVS_HW, num_steps=T,
+        capacity=8 * P)
+    planes = {pol: aer.input_planes(stream, T, P, polarity_mode=pol)
+              for pol in ("signed", "two_channel")}
+    return stream, labels, planes
+
+
+def dvs_engines(torch, dev, params, cfg):
+    """Engine factory at serving geometry for one network."""
+    from repro_torch.serving.snn_engine import SNNStreamEngine
+
+    def engine(backend, **kw):
+        return SNNStreamEngine(params, cfg, num_slots=SLOTS, chunk_steps=TC,
+                               backend=backend, device=dev, **kw)
+
+    return engine
+
+
+def serve_dvs(torch, name, engine, reqs, card):
+    """The graph engine on ``reqs`` (counts from 0, read right after),
+    held against the eager engine and the plain chunk field for field."""
+    engine("fused").run(reqs[:2])  # warm-up: allocator, capture
+    torch.cuda.synchronize()
+    eng = engine("fused")
+    results, wall, eager = serve_counted(torch, eng, reqs)
+    check_clean(f"dvs[{name}]", eng)
+    if eager != eng.graph_captures:
+        fail(f"dvs[{name}]: {eager} eager snn_chunk launches for "
+             f"{eng.graph_captures} capture(s)")
+    for r in results:
+        if r.disposition != "ok" or r.prediction not in (0, 1) or not (
+                r.events_per_layer[0] > 0 and r.energy_pj > 0):
+            fail(f"dvs[{name}] request {r.request_id}: {r.disposition} "
+                 f"{r.fault} {r.events_per_layer} {r.energy_pj}")
+    got = [fault_fields(r) for r in results]
+    base = engine("fused", cuda_graph=False)
+    if [fault_fields(r) for r in serve_counted(torch, base, reqs)[0]] != got:
+        fail(f"dvs[{name}]: the graph engine differs from the eager engine")
+    check_no_retries(f"dvs[{name}] eager", base)
+    if [fault_fields(r) for r in engine("fused_ref").run(reqs)] != got:
+        fail(f"dvs[{name}]: the graph engine differs from the plain chunk")
+    events = float(sum(r.events_per_layer.sum() for r in results))
+    rec = {"ms_tick": wall / eng.dispatched_ticks * 1e3,
+           "req_s": len(results) / wall, "events_s": events / wall,
+           "energy_nj": statistics.mean(r.energy_pj for r in results) / 1e3,
+           "launches": eager + eng.graph_replays, "ticks": eng.dispatched_ticks,
+           "results": results}
+    print(f"dvs[{name}]: {len(results)} requests ok in {wall:.3f} s over "
+          f"{eng.dispatched_ticks} ticks = {eng.graph_replays} graph replays "
+          f"+ {eager} warm-up launch(es), steady-state re-captures "
+          f"{eng.steady_state_recompiles()} | {rec['ms_tick']:.3f} ms/tick | "
+          f"{rec['req_s']:.1f} req/s | {rec['events_s']:.0f} events/s | mean "
+          f"{rec['energy_nj']:.1f} nJ a request (45 nm model) | equal to the "
+          f"eager engine and the plain chunk in every field | on {card}")
+    return rec
+
+
+def chunk_case(torch, dev, params, planes, C, card, name):
+    """``snn_chunk`` on the first chunk (steps 0-4, the dense reference
+    frame included) of 8 recordings staged at capacity C: device time a
+    call and of the kernel alone, and its outputs."""
+    from repro_torch.core import snn
+    from repro_torch.events import runtime
+    from repro_torch.kernels import snn_chunk as chunk_mod
+
+    x = planes[:TC, :SLOTS].transpose(0, 1).contiguous()  # (B, Tc, K)
+    tab = runtime.encode_step_table(x, C)
+    L = len(params)
+    lp = [params[f"layer{i}"] for i in range(L)]
+    widths = [x.shape[-1]] + [p["w"].shape[1] for p in lp]
+    args = ([p["w"] for p in lp], [p["b"] for p in lp],
+            [snn.effective_beta(p) for p in lp], [p["threshold"] for p in lp],
+            [torch.zeros(SLOTS, n, device=dev) for n in widths[1:]],
+            [torch.zeros(SLOTS, n, dtype=torch.int32, device=dev)
+             for n in widths[1:]],
+            tab.addrs, tab.values, tab.counts, torch.ones(SLOTS, device=dev))
+    call = lambda: chunk_mod.snn_chunk(*args, layout="slot_major")  # noqa: E731
+    out = call()
+    rec = {"ms": kernel_ms(call), "C": C,
+           "alone_ms": device_ms(call, only="snn_chunk_kernel"),
+           "events": int(tab.counts.sum())}
+    print(f"dvs chunk[{name}]: C={C}, {rec['events']} layer-0 events over "
+          f"steps 0-{TC - 1} of {SLOTS} recordings | snn_chunk "
+          f"{rec['ms']:.4f} ms device a call (kernel alone "
+          f"{rec['alone_ms'] or 0:.4f} ms) | on {card}")
+    return rec, out
+
+
+def phase_events(torch, dev, params_np, card, main_run):
+    """Phase 10: DVS serving, capacity tuning, AER-direct inference and
+    the BCNN baseline with the energy comparison, at full width."""
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.core import bcnn, energy, snn
+    from repro_torch.data import collision
+    from repro_torch.events import aer, capacity, runtime
+    from repro_torch.kernels import aer_matmul as aer_mod
+    from repro_torch.optim import adam
+    from repro_torch.serving.snn_engine import StreamRequest
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    T = CONFIG.num_steps
+    stream, _, planes = dvs_inputs(torch, dev)
+    cfgs = {"signed": CONFIG,  # 4096-512-2
+            "two_channel": snn.SNNConfig(  # 8192-512-2
+                layer_sizes=(2 * CONFIG.layer_sizes[0],)
+                + tuple(CONFIG.layer_sizes[1:]), num_steps=T)}
+    params = {"signed": snn.params_from_numpy(params_np, dev),
+              "two_channel": snn.params_from_numpy(
+                  weights_np(cfgs["two_channel"].layer_sizes, SEED), dev)}
+    host = {pol: p.cpu().numpy() for pol, p in planes.items()}
+    reqs = {pol: [StreamRequest(spikes=h[:, i]) for i in range(DVS_SERVED)]
+            for pol, h in host.items()}
+    engines = {pol: dvs_engines(torch, dev, params[pol], cfgs[pol])
+               for pol in cfgs}
+
+    # 10a. DVS serving on the graph engine
+    served = {pol: serve_dvs(torch, pol, engines[pol], reqs[pol], card)
+              for pol in cfgs}
+    rate = main_run["rate_coded"]
+    print(f"dvs vs rate-coded (the paper's claim in miniature, "
+          f"{'-'.join(map(str, CONFIG.layer_sizes))}): "
+          f"signed DVS {served['signed']['energy_nj']:.1f} nJ, "
+          f"{served['signed']['ms_tick']:.3f} ms/tick, "
+          f"{served['signed']['req_s']:.1f} req/s, "
+          f"{served['signed']['events_s']:.0f} events/s | rate-coded "
+          f"(phase 4) {rate['energy_nj']:.1f} nJ, {rate['ms_tick']:.3f} "
+          f"ms/tick, {rate['req_s']:.1f} req/s, {rate['events_s']:.0f} "
+          f"events/s | energy is the 45 nm model priced from counted events")
+
+    # 10b. capacity plans from counts measured on the card
+    plans, cases = {}, {}
+    for pol, cfg in cfgs.items():
+        sample = planes[pol][:, :DVS_SERVED]
+        counts = {b: capacity.measure_step_counts(params[pol], cfg, sample,
+                                                  backend=b)
+                  for b in ("fused", "fused_ref", "torch")}
+        if not (counts["fused"] == counts["fused_ref"]).all():
+            fail(f"capacity[{pol}]: the kernel's counts differ from its "
+                 f"plain version's")
+        if not (counts["fused"][0] == counts["torch"][0]).all():
+            fail(f"capacity[{pol}]: layer-0 counts differ from torch's")
+        plan = capacity.autotune(params[pol], cfg, sample,
+                                 counts=counts["fused"])
+        if plan.capacities != capacity.autotune(
+                params[pol], cfg, sample, counts=counts["torch"]).capacities:
+            fail(f"capacity[{pol}]: the plan on torch's counts differs")
+        plans[pol] = plan
+        hidden = np.abs(counts["fused"][1:] - counts["torch"][1:])
+        print(f"capacity[{pol}]: plan {plan.capacities} of fan-in "
+              f"{plan.fan_in} | shrink {[round(x, 3) for x in plan.shrink]} | "
+              f"max_count {plan.max_count} | pct_count {plan.pct_count} | "
+              f"dropped_events_frac {plan.dropped_events_frac} | counts "
+              f"through backend='fused' equal the plain chunk's in all "
+              f"{counts['fused'].size} lists, and backend='torch' in layer 0 "
+              f"and the plan; torch's hidden counts differ in "
+              f"{int((hidden > 0).sum())} of {hidden.size} lists by up to "
+              f"{int(hidden.max()) if hidden.size else 0} (its layer-0 sums "
+              f"run in another order; not gated)")
+    tuned_pol = min(plans, key=lambda p: plans[p].capacities[0] / plans[p].fan_in[0])
+    plan = plans[tuned_pol]
+    C = plan.capacities[0]
+    if C >= plan.fan_in[0]:
+        fail(f"capacity: no plan shrinks layer 0 ({plans})")
+    tuned = engines[tuned_pol]("fused", capacities=plan.capacities)
+    t_results, t_wall, t_eager = serve_counted(torch, tuned, reqs[tuned_pol])
+    check_clean("capacity tuned engine", tuned)
+    if [fault_fields(r) for r in t_results] != [
+            fault_fields(r) for r in served[tuned_pol]["results"]]:
+        fail("capacity: the tuned engine differs from the untuned one")
+    full = engines[tuned_pol]("fused")
+    ring = {name: sum(v.nbytes for v in e._ring.values())
+            for name, e in (("tuned", tuned), ("full", full))}
+    outs = {}
+    for pol in cfgs:
+        cases[f"dvs_{pol}"], outs[pol] = chunk_case(
+            torch, dev, params[pol], planes[pol], cfgs[pol].layer_sizes[0],
+            card, pol)
+    cases["tuned_C"], tuned_out = chunk_case(
+        torch, dev, params[tuned_pol], planes[tuned_pol], C, card,
+        f"{tuned_pol} tuned")
+    # launches of each case's serving run (replays + warm-ups)
+    for pol in cfgs:
+        cases[f"dvs_{pol}"]["launches"] = served[pol]["launches"]
+    cases["tuned_C"]["launches"] = t_eager + tuned.graph_replays
+    if not all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(list(tuned_out)),
+                   tree_leaves(list(outs[tuned_pol])))):
+        fail("capacity: snn_chunk at the tuned C differs from fan-in")
+    print(f"capacity[{tuned_pol}]: engine at C={C} serves the {DVS_SERVED} "
+          f"requests equal to the untuned engine in every field | "
+          f"{t_wall / tuned.dispatched_ticks * 1e3:.3f} ms/tick | staged ring "
+          f"bytes {ring['tuned']} at C={C} vs {ring['full']} at "
+          f"C={plan.fan_in[0]} | snn_chunk {cases['tuned_C']['ms']:.4f} vs "
+          f"{cases[f'dvs_{tuned_pol}']['ms']:.4f} ms device a call | on {card}")
+    held = planes[tuned_pol][:, DVS_SERVED:]
+    reports = {b: capacity.truncation_report(params[tuned_pol],
+                                             cfgs[tuned_pol], held, plan,
+                                             backend=b)
+               for b in ("fused", "fused_ref", "torch")}
+    if reports["fused"] != reports["fused_ref"]:
+        fail(f"capacity: the kernel's truncation report differs from the "
+             f"plain chunk's: {reports}")
+    differ = sorted(k for k in reports["fused"]
+                    if reports["fused"][k] != reports["torch"][k])
+    held_reqs = [StreamRequest(spikes=host[tuned_pol][:, DVS_SERVED + i])
+                 for i in range(DVS_HELD_OUT)]
+    overflow = sum(r.fault == "capacity_overflow"
+                   for r in engines[tuned_pol](
+                       "fused", capacities=plan.capacities).run(held_reqs))
+    print(f"capacity[{tuned_pol}]: truncation_report on {DVS_HELD_OUT} "
+          f"held-out recordings {reports['fused']} (equal to the plain "
+          f"chunk's; backend='torch' differs in {differ or 'nothing'}: "
+          f"{ {k: reports['torch'][k] for k in differ} }, not gated) | "
+          f"capacity_overflow quarantines "
+          f"{overflow}/{DVS_HELD_OUT}")
+
+    # 10c. AER-direct inference on the aer kernel
+    streams = aer.EventStream(*(x[:AER_BATCH] for x in stream))
+    p = params["signed"]
+
+    def forward():
+        return runtime.event_forward_aer(p, streams, CONFIG)
+
+    forward()  # warm-up
+    torch.cuda.synchronize()
+    aer_mod.aer_spike_matmul_batched.launches = 0
+    t0 = time.perf_counter()
+    got = forward()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = aer_mod.aer_spike_matmul_batched.launches
+    if launches != T * CONFIG.num_layers:
+        fail(f"event_forward_aer: {launches} aer launches, want T x L = "
+             f"{T * CONFIG.num_layers}")
+    with mock.patch.object(aer_mod, "aer_spike_matmul_batched",
+                           aer_mod.aer_spike_matmul_batched_ref):
+        plain = forward()
+    if not all(torch.equal(a, b) for a, b in zip(got, plain)):
+        fail("event_forward_aer: the kernel differs from its plain version")
+    dense = runtime.event_forward(p, planes["signed"][:, :AER_BATCH], CONFIG,
+                                  backend="fused")
+    err = float((got[0] - dense[0]).abs().max())
+    if not (torch.equal(got[1], dense[1]) and torch.equal(got[2], dense[2])
+            and torch.allclose(got[0], dense[0], atol=1e-5, rtol=1e-5)):
+        fail(f"event_forward_aer differs from event_forward on the planes "
+             f"(membranes by {err})")
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    aer_ms = device_ms(forward, reps=3, only="aer_")
+    window_ms = device_ms(forward, reps=3)
+    print(f"aer inference: event_forward_aer B={AER_BATCH} T={T} "
+          f"{'-'.join(map(str, CONFIG.layer_sizes))}, "
+          f"{int(got[2][0].sum())} layer-0 and {int(got[2][1:].sum())} hidden "
+          f"events, {int(got[1].sum())} output spikes | aer launches "
+          f"{launches} (= T x L) | equal to the plain version; spikes and "
+          f"events equal event_forward(fused) on the planes, membranes within "
+          f"{err:.3g} | {statistics.median(walls):.3f} ms a window (host "
+          f"clock; first {first_ms:.3f}) | device {window_ms or 0:.4f} ms a "
+          f"window, of which the aer kernel {aer_ms or 0:.4f} ms | on {card}")
+
+    # 10d. the BCNN baseline and the energy comparison
+    bcfg = bcnn.BCNNConfig()
+    x, y, _, _ = collision.generate(collision.CollisionConfig(
+        image_hw=bcfg.input_hw, num_train=BCNN_IMAGES, num_test=0, seed=SEED))
+    cpu_params = bcnn.init_params(torch.Generator().manual_seed(SEED), bcfg)
+    bp = tree_map(lambda v: v.to(dev), cpu_params)
+    xb, yb = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    card_logits = bcnn.forward(bp, xb, bcfg)
+    cpu_logits = bcnn.forward(cpu_params, torch.from_numpy(x), bcfg)
+    b_err = float((card_logits.cpu() - cpu_logits).abs().max())
+    if not torch.allclose(card_logits.cpu(), cpu_logits, atol=1e-4, rtol=1e-4):
+        fail(f"bcnn: the card's logits differ from the CPU's by {b_err}")
+    live = tree_map(lambda v: v.detach().requires_grad_(True), bp)
+    loss, aux = bcnn.loss_fn(live, xb, yb, bcfg)
+    grads = torch.autograd.grad(loss, tree_leaves(live))
+    opt = adam(5e-4)
+    updates, _ = opt.update(tree_unflatten(bp, list(grads)), opt.init(bp), bp)
+    if not (torch.isfinite(loss) and all(
+            bool(torch.isfinite(u).all()) for u in tree_leaves(updates))):
+        fail(f"bcnn: training step loss {float(loss)} or update not finite")
+    b_ms = cuda_ms(lambda: bcnn.forward(bp, xb, bcfg))
+    ev = [statistics.mean(float(r.events_per_layer[i])
+                          for r in served["signed"]["results"])
+          for i in range(CONFIG.num_layers)]
+    snn_ops = energy.snn_ops_from_events(CONFIG.layer_sizes, T, ev)
+    small = energy.bcnn_inference_ops(*bcnn.conv_shapes_for_energy(bcfg))
+    big = energy.bcnn36_inference_ops()
+    print(f"bcnn: {bcfg.input_hw}x{bcfg.input_hw} channels {bcfg.channels}, "
+          f"{BCNN_IMAGES} images on the card (TF32 off) within {b_err:.3g} of "
+          f"the CPU | training step loss {float(loss.detach()):.4f} (finite) | "
+          f"forward {b_ms:.4f} ms (CUDA events, cuDNN) | on {card}")
+    print(f"energy (45 nm model estimate, not a measurement): SNN on the "
+          f"measured signed DVS events (mean {[round(e) for e in ev]} a "
+          f"request) {snn_ops.energy_pj() / 1e3:.1f} nJ | reduction vs "
+          f"BCNN [36] at its published 2.04 GOP/frame "
+          f"{energy.energy_reduction(snn_ops, big):.4f} | vs the small BCNN "
+          f"({small.energy_pj() / 1e3:.1f} nJ) "
+          f"{energy.energy_reduction(snn_ops, small):.4f} | paper: 0.86")
+    return {"cases": cases, "aer_launches": launches,
+            "served": {k: {f: v[f] for f in ("ms_tick", "req_s", "events_s",
+                                             "energy_nj", "launches")}
+                       for k, v in served.items()}}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -1801,6 +2166,8 @@ def main() -> int:
     ops_k = phase_ops_kernels(torch, dev, hw, card)
     # 9. faults, admission, preemption and snapshots on the graph engine
     phase_faults(torch, dev, params_np, card)
+    # 10. the event input path: DVS serving, capacity, AER-direct, BCNN
+    events = phase_events(torch, dev, params_np, card, main_run)
 
     odd = collections.Counter(x for x in RECORD_OFFSETS if x)
     print(f"profiler: {sum(odd.values())} of {len(RECORD_OFFSETS)} kernel "
@@ -1808,7 +2175,7 @@ def main() -> int:
           f"reps x launches: {dict(odd)}); their times use each kernel's mean "
           f"duration")
 
-    # 10. results
+    # 11. results
     dense = aer["layer0_dense_t0"]
     aer_cases = {name: {k: c[k] for k in ("variant", "ms", "alone_ms",
                                           "bound_ms", "library_ms")}
@@ -1825,6 +2192,7 @@ def main() -> int:
         "bound_ms": kern["bound_ms"],
         "bound_by": kern["bound_by"],
         "library_ms": None,
+        "cases": events["cases"],
     }, {
         "name": "aer_spike_matmul_batched",
         "route": "cuda",
@@ -1840,6 +2208,7 @@ def main() -> int:
         "ms_sparse": aer["layer0_sparse_t24"]["ms"],
         "ms_layer1": aer["layer1"]["ms"],
         "cases": aer_cases,
+        "launches_inference": events["aer_launches"],
     }] + ops_rows(hw, ops_k)}))
     print(card)
     print(json.dumps({"ok": True, "device": {

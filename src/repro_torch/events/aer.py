@@ -5,6 +5,7 @@
 - ``dense_to_aer`` / ``aer_to_dense``: lossless round trip whenever the
   capacity covers the active entries; on overflow the earliest events
   (time-major order) are kept.
+- ``merge``: time-ordered merge of two streams over one address space.
 - ``StepEventTable``: one fixed-capacity, valid-first event list per time
   step (the device-resident staging format), so slicing the step axis
   yields a chunk's worth of ready-to-gather events.  Addresses are int16
@@ -23,7 +24,7 @@ by (time, address) ascending.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -101,6 +102,53 @@ def aer_to_dense(
     flat.scatter_add_(1, idx, stream.polarity.reshape(nb, E).to(torch.float32))
     dense = flat[:, :size].reshape(batch_shape + (num_steps, num_addrs))
     return torch.movedim(dense, -2, 0)
+
+
+def merge(
+    a: EventStream,
+    b: EventStream,
+    *,
+    num_addrs: int,
+    capacity: int,
+    num_steps: Optional[int] = None,
+) -> EventStream:
+    """Time-ordered merge of two streams over one address space.
+
+    Keeps the earliest ``capacity`` events of the union (AER bus arbiter
+    semantics); ``capacity`` may exceed the combined input capacity, and
+    the tail is then padded.  Both inputs follow the padding convention.
+    Padding is stamped at ``num_steps`` (the T both streams were encoded
+    with) or, without it, at one past the latest time in the inputs, which
+    still sorts after every valid event but may lie inside a longer
+    window (``runtime.event_forward_aer`` masks it by polarity).
+    """
+    times = torch.cat([a.times, b.times], dim=-1).to(torch.int64)
+    addrs = torch.cat([a.addrs, b.addrs], dim=-1).to(torch.int64)
+    pol = torch.cat([a.polarity, b.polarity], dim=-1)
+    # padding (times == T_pad, addrs == 0) sorts after every valid event
+    key = times * num_addrs + addrs
+    take = min(capacity, times.shape[-1])
+    order = torch.argsort(key, dim=-1, stable=True)[..., :take]
+    count = torch.clamp(a.count + b.count, max=capacity).to(torch.int32)
+    valid = torch.arange(capacity, device=times.device) < count[..., None]
+    out_t, out_a, out_p = (
+        torch.gather(x, -1, order) for x in (times, addrs, pol)
+    )
+    if capacity > take:
+        pad = (0, capacity - take)
+        out_t, out_a, out_p = (
+            torch.nn.functional.pad(x, pad) for x in (out_t, out_a, out_p)
+        )
+    if num_steps is not None:
+        pad_t = torch.full_like(times[..., :1], num_steps)
+    else:
+        pad_t = times.max(dim=-1, keepdim=True).values + 1
+    return EventStream(
+        times=torch.where(valid, out_t, pad_t).to(torch.int32),
+        addrs=torch.where(valid, out_a, 0).to(torch.int32),
+        polarity=torch.where(valid, out_p, 0).to(torch.int8),
+        count=count,
+    )
 
 
 class StepEventTable(NamedTuple):

@@ -6,7 +6,9 @@ scales with measured spiking activity.  Every entry point also measures
 per-layer event counts, which feed ``core.energy.snn_ops_from_events``.
 
 State is explicit (``init_states`` / ``run_chunk``) so the serving engine
-can carry membrane potentials across chunks.
+can carry membrane potentials across chunks.  ``event_forward_aer`` runs
+the network straight from an AER stream, every layer's current through
+the aer kernel (``kernels.aer_matmul``).
 
 Backends of ``run_chunk_events``:
   - ``"torch"``: plain PyTorch, the mirror of the reference's jnp scan
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.core import neuron, snn
 from repro_torch.events import aer
+from repro_torch.kernels import aer_matmul
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 ChunkOut = Tuple[
@@ -69,6 +72,27 @@ def step_events(
     valid = torch.arange(capacity, device=dev) < count[..., None]
     addrs = torch.where(valid, src, 0).to(torch.int32)
     values = torch.where(valid, torch.gather(x, -1, src), 0.0)
+    return addrs, values.to(torch.float32), count
+
+
+def step_events_argsort(
+    x: torch.Tensor, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``step_events`` by a stable argsort of the inactive mask (O(K log
+    K)): the oracle of the compaction above, with the same outputs and
+    the same truncation to the first ``capacity`` active positions."""
+    active = x != 0
+    order = torch.argsort(
+        (~active).to(torch.uint8), dim=-1, stable=True
+    )[..., :capacity]
+    count = torch.clamp(active.sum(dim=-1), max=capacity).to(torch.int32)
+    valid = torch.arange(order.shape[-1], device=x.device) < count[..., None]
+    addrs = torch.where(valid, order, 0).to(torch.int32)
+    values = torch.where(valid, torch.gather(x, -1, order), 0.0)
+    if order.shape[-1] < capacity:  # capacity beyond K: pad the tail
+        pad = (0, capacity - order.shape[-1])
+        addrs = torch.nn.functional.pad(addrs, pad)
+        values = torch.nn.functional.pad(values, pad)
     return addrs, values.to(torch.float32), count
 
 
@@ -335,6 +359,89 @@ def event_forward(
         capacities=capacities, prepared=prepared, backend=backend,
     )
     return out_mem, out_spikes, torch.sum(events, dim=0)
+
+
+def step_windows(
+    stream: aer.EventStream, num_steps: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The per-step event tables of a time-sorted AER stream with batch
+    dims (B,): (addrs (T, B, E_max) int32, values (T, B, E_max) float32
+    polarities, counts (T, B) float32), each step's window packed
+    valid-first in stream order, ``E_max`` the longest window.
+
+    A slot is valid inside its step's window and where its polarity is
+    nonzero: ``merge`` without ``num_steps`` stamps padding at one past
+    the latest time, which can fall inside the window, and padding must
+    not be billed as events.  Sizing the tables reads one number back
+    from the device (``E_max``), once per stream.
+    """
+    B, E = stream.times.shape
+    dev = stream.times.device
+    steps = torch.arange(num_steps + 1, dtype=stream.times.dtype, device=dev)
+    bounds = torch.searchsorted(
+        stream.times.contiguous(), steps.expand(B, -1).contiguous(),
+        side="left",
+    )  # (B, T + 1)
+    start, end = bounds[:, :-1], bounds[:, 1:]
+    e_max = max(1, int((end - start).max())) if B * num_steps else 1
+    offs = start[:, :, None] + torch.arange(e_max, device=dev)  # (B, T, E_max)
+    flat = offs.clamp(max=max(E - 1, 0)).reshape(B, -1)
+    addrs = torch.gather(stream.addrs.long(), 1, flat).reshape(offs.shape)
+    pol = torch.gather(stream.polarity, 1, flat).reshape(offs.shape)
+    valid = (offs < end[:, :, None]) & (pol != 0)
+    addrs = torch.where(valid, addrs, 0).to(torch.int32).transpose(0, 1)
+    values = torch.where(valid, pol.to(torch.float32), 0.0).transpose(0, 1)
+    counts = valid.sum(dim=-1).to(torch.float32).T
+    return addrs.contiguous(), values.contiguous(), counts.contiguous()
+
+
+def event_forward_aer(
+    params: Params,
+    stream: aer.EventStream,  # batch dims (B,), addresses over layer_sizes[0]
+    cfg: snn.SNNConfig,
+    *,
+    num_steps: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run the SNN straight from an AER input stream (e.g. DVS events).
+
+    No dense input plane is built: each step's window of the time-sorted
+    stream is gathered into the synaptic integration, polarity-signed.
+    Every layer's current is ``aer_matmul.aer_spike_matmul_batched``
+    (the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor)
+    plus the bias: layer 0 over the step's window, hidden layers over
+    ``step_events`` of the previous layer's spikes.  That is T x L kernel
+    launches a window, issued after one host read (``step_windows``).
+
+    Returns (out_mem (T, B, C), out_spikes (T, B, C), events (L, B)), the
+    measured per-layer input events of the window.
+    """
+    T = num_steps if num_steps is not None else cfg.num_steps
+    p = prepare_params(params, cfg)
+    ncfg = cfg.neuron_cfg
+    L = cfg.num_layers
+    B = stream.times.shape[0]
+    addrs, values, counts = step_windows(stream, T)
+    states = init_states(cfg, B, device=stream.times.device)
+    events = [torch.zeros_like(counts[0]) for _ in range(L)]
+    mems, spks = [], []
+    for t in range(T):
+        h = None
+        for i in range(L):
+            lp = p[f"layer{i}"]
+            if i == 0:
+                a_i, v_i, count = addrs[t], values[t], counts[t]
+            else:
+                a_i, v_i, c_i = step_events(h, cfg.layer_sizes[i])
+                count = c_i.to(torch.float32)
+            cur = aer_matmul.aer_spike_matmul_batched(a_i, v_i, lp["w"]) + lp["b"]
+            states[i], h = neuron.neuron_step(
+                ncfg, states[i], cur,
+                beta=snn.effective_beta(lp), threshold=lp["threshold"],
+            )
+            events[i] = events[i] + count
+        mems.append(states[-1].u)
+        spks.append(h)
+    return torch.stack(mems), torch.stack(spks), torch.stack(events)
 
 
 def predict_events(

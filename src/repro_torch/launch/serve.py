@@ -2,6 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --snn --requests 16 \
       --batch 8 --image-hw 64 --hidden 512 --num-steps 25 --chunk-steps 5 \
+      [--dvs --polarity two_channel|signed|on_only] \
       [--snn-backend fused|torch|auto] [--no-pipeline] [--deadline-ms 50] \
       [--arrival-rate 400] [--drain-timeout 30] \
       [--max-queue 16] [--shed] [--inject-faults 4 --fault-seed 0] \
@@ -9,8 +10,12 @@
       [--metrics-json m.json] [--trace-out t.json] [--timeseries-out s.jsonl] \
       [--profile-ticks 20 --profile-dir DIR] [--device cuda|cpu]
 
-Requests are rate-coded images of the synthetic collision dataset; the
-network's weights are random, made from a seed.  Closed loop by default;
+Requests are rate-coded images of the synthetic collision dataset, or
+with ``--dvs`` synthetic DVS recordings as polarity-aware input planes
+(``--polarity two_channel`` doubles the input layer, ``signed`` feeds
+{-1, 0, +1} spikes through shared rows, ``on_only`` keeps ON events); the
+network's weights are random, made from a seed.  The latency SLO's p99
+target is the ``--deadline-ms`` budget (1 s without one).  Closed loop by default;
 ``--arrival-rate`` submits them open-loop at Poisson arrival times.  The
 fault-tolerance flags are the reference launcher's: a bounded admission
 queue and feasibility shedding, seeded chaos, rotating snapshots with a
@@ -34,6 +39,8 @@ import torch
 
 from repro_torch.core import snn
 from repro_torch.data import collision
+from repro_torch.events import aer
+from repro_torch.obs import default_slos
 from repro_torch.serving.snn_engine import (
     EngineStallError,
     SNNStreamEngine,
@@ -126,22 +133,55 @@ def _serve_loop(args, engine, reqs):
     return sorted(results, key=lambda r: r.request_id)
 
 
+def _requests(args, cfg, device):
+    """The requests the flags ask for, and the source they name: rate-coded
+    images of the collision dataset, or (``--dvs``) synthetic DVS
+    recordings densified into polarity-aware input planes, drawn from a
+    seeded generator as the reference draws them from a seeded key."""
+    hw = args.image_hw
+    if args.dvs:
+        gen = torch.Generator(device=device).manual_seed(2)
+        stream, _ = aer.dvs_collision_batch(
+            gen, args.requests, image_hw=hw, num_steps=cfg.num_steps,
+            capacity=8 * hw * hw,
+        )
+        planes = aer.input_planes(
+            stream, cfg.num_steps, hw * hw, polarity_mode=args.polarity
+        ).cpu().numpy()
+        reqs = [StreamRequest(spikes=planes[:, i])
+                for i in range(args.requests)]
+        return reqs, f"dvs-events/{args.polarity}"
+    data_cfg = collision.CollisionConfig(
+        image_hw=hw, num_train=0, num_test=args.requests
+    )
+    _, _, test_x, _ = collision.generate(data_cfg)
+    return [StreamRequest(image=x.reshape(-1)) for x in test_x], "rate-coded"
+
+
 def _serve_snn(args) -> None:
     device = resolve_device(args.device)
     if args.requests <= 0:
         print("snn: nothing to serve (--requests 0)")
         return
     hw = args.image_hw
-    input_size = hw * hw
+    # DVS ON/OFF events get their own input channels (or signed weights);
+    # frame-camera mode keeps hw*hw inputs
+    input_size = (
+        aer.input_size_for(hw * hw, args.polarity) if args.dvs else hw * hw
+    )
     cfg = snn.SNNConfig(
         layer_sizes=(input_size, args.hidden, 2), num_steps=args.num_steps
     )
     params = snn.init_params(torch.Generator().manual_seed(0), cfg, device)
     admission, injector = _fault_plane(args, cfg)
+    deadline_s = args.deadline_ms / 1e3 if args.deadline_ms > 0 else None
     engine = SNNStreamEngine(
         params, cfg, num_slots=args.batch, chunk_steps=args.chunk_steps,
         seed=1, backend=args.snn_backend,
         pipeline_depth=0 if args.no_pipeline else 1,
+        # the latency SLO's target follows the deadline budget (1 s
+        # without one), as in the reference launcher
+        slos=default_slos(p99_target_s=deadline_s or 1.0),
         admission=admission, injector=injector, preempt=args.preempt,
         device=device,
     )
@@ -157,12 +197,7 @@ def _serve_snn(args) -> None:
         else:
             print(f"snn: no usable snapshot under {args.snapshot_dir}; "
                   f"cold start")
-    data_cfg = collision.CollisionConfig(
-        image_hw=hw, num_train=0, num_test=args.requests
-    )
-    _, _, test_x, _ = collision.generate(data_cfg)
-    deadline_s = args.deadline_ms / 1e3 if args.deadline_ms > 0 else None
-    reqs = [StreamRequest(image=x.reshape(-1)) for x in test_x]
+    reqs, source = _requests(args, cfg, device)
     if deadline_s is not None:
         reqs = [dataclasses.replace(r, deadline_s=deadline_s) for r in reqs]
 
@@ -191,7 +226,7 @@ def _serve_snn(args) -> None:
     loop = (f"open-loop {args.arrival_rate:.0f} req/s"
             if args.arrival_rate > 0 else "closed-loop")
     print(
-        f"snn[{input_size}->{args.hidden}->2, T={cfg.num_steps}, rate-coded]: "
+        f"snn[{input_size}->{args.hidden}->2, T={cfg.num_steps}, {source}]: "
         f"served {len(results)} reqs in {dt:.2f}s on {args.batch} slots "
         f"({loop}) (ok {len(ok)} | shed {n_shed} | quarantined {n_quar})"
     )
@@ -298,6 +333,13 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4,
                     help="number of slots served together")
+    ap.add_argument("--dvs", action="store_true",
+                    help="synthetic DVS event-camera input instead of "
+                         "rate-coded images")
+    ap.add_argument("--polarity", default="two_channel",
+                    choices=list(aer.POLARITY_MODES),
+                    help="DVS ON/OFF event mapping onto the input layer "
+                         "(with --dvs)")
     ap.add_argument("--image-hw", type=int, default=32)
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--num-steps", type=int, default=25)

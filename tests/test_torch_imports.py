@@ -58,3 +58,15 @@ def test_importing_the_port_loads_no_jax_or_reference():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_scan_covers_the_event_input_baseline_and_example_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("core/bcnn.py", "core/energy.py", "events/capacity.py",
+                "events/aer.py", "events/runtime.py", "launch/serve.py",
+                "examples/_common.py", "examples/quickstart.py",
+                "examples/collision_avoidance.py",
+                "examples/event_stream_serving.py",
+                "examples/refractory_ablation.py",
+                "examples/coding_ablation.py"):
+        assert f"src/repro_torch/{mod}" in names, mod

@@ -404,3 +404,25 @@ def test_lif_launcher_takes_the_wrapper_arguments_as_the_source_declares():
     decl = src[src.index('extern "C" int lif_fused_launch('):]
     params = decl[:decl.index(")")].count(",") + 1
     assert params == len(_build.SIGNATURES["lif_fused"][1]) == 12
+
+
+@pytest.mark.parametrize("widths,steps,batch", [
+    ((8192, 512, 2), 5, 8),  # two-channel DVS serving
+    ((8192, 512, 2), 25, 48),  # measure_step_counts over 48 recordings
+    ((4096, 512, 2), 25, 48),
+])
+def test_snn_chunk_plans_the_dvs_input_widths(widths, steps, batch):
+    """The chunk's plan does not depend on K0: the two-channel layer plans
+    as the signed one does, and its int16 addresses hold 8192."""
+    geo = chunk_mod.plan(widths, steps, batch)
+    assert geo == chunk_mod.plan((4096,) + widths[1:], steps, batch)
+    assert geo.ctas == batch * chunk_mod.CLUSTER
+
+
+@pytest.mark.parametrize("E", [1, 588, 4068, 4096])
+def test_aer_plan_takes_event_forward_aer_windows(E):
+    """``event_forward_aer``'s layer-0 tables (B = 32 streams, E the
+    longest step window of a 64x64 DVS batch) and its hidden tables."""
+    geo = aer_mod.plan(32, E, 4096, 512, False)
+    assert (geo.variant, geo.streams, geo.e_chunk) == ("merged", 4, E)
+    assert aer_mod.plan(32, 512, 512, 2, False).variant == "narrow"

@@ -949,3 +949,95 @@ def test_kernel_failure_raises_and_never_demotes_on_card(
     assert chunks == ([] if where == "graph_replay" else ["fused"])
     assert eng.graph_captures == (1 if where == "graph_replay" else 0)
 
+
+
+# ------------------------------- the event input path and the baseline
+def _dvs_stream(d, n, hw=64, T=25):
+    from repro_torch.events import aer
+
+    gen = torch.Generator(device=d).manual_seed(5)
+    stream, labels = aer.dvs_collision_batch(gen, n, image_hw=hw,
+                                             num_steps=T, capacity=8 * hw * hw)
+    return stream, labels
+
+
+@pytest.mark.cuda
+def test_event_forward_aer_kernel_equals_plain_on_card(cuda_device,
+                                                       monkeypatch):
+    """AER-direct inference at 4096-512-2 on a DVS batch: T x L aer
+    launches, equal to the same forward on the kernel's plain version and
+    to ``event_forward`` on the densified planes."""
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.events import aer
+
+    params = snn.init_params(torch.Generator().manual_seed(3), CONFIG,
+                             cuda_device)
+    params["layer1"]["threshold"].fill_(0.1)
+    stream, _ = _dvs_stream(cuda_device, 6)
+    before = aer_mod.aer_spike_matmul_batched.launches
+    got = runtime.event_forward_aer(params, stream, CONFIG)
+    torch.cuda.synchronize()
+    assert aer_mod.aer_spike_matmul_batched.launches - before == (
+        CONFIG.num_steps * CONFIG.num_layers)
+    planes = aer.input_planes(stream, CONFIG.num_steps, 4096,
+                              polarity_mode="signed")
+    dense = runtime.event_forward(params, planes, CONFIG, backend="fused")
+    monkeypatch.setattr(aer_mod, "aer_spike_matmul_batched",
+                        aer_mod.aer_spike_matmul_batched_ref)
+    plain = runtime.event_forward_aer(params, stream, CONFIG)
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+    assert torch.equal(got[1], dense[1]) and torch.equal(got[2], dense[2])
+    torch.testing.assert_close(got[0], dense[0], atol=1e-5, rtol=1e-5)
+    assert got[2][0].sum() > 0 and got[1].sum() > 0
+
+
+@pytest.mark.cuda
+def test_tuned_engine_equals_untuned_and_quarantines_overflow_on_card(
+        cuda_device):
+    """A plan tuned on two-channel DVS planes (K0 = 8192) serves them as
+    the untuned engine does; a train over the tuned C is quarantined."""
+    from repro_torch.events import aer, capacity
+    from repro_torch.serving.snn_engine import SNNStreamEngine, StreamRequest
+
+    cfg = snn.SNNConfig(layer_sizes=(8192, 512, 2), num_steps=25)
+    params = snn.init_params(torch.Generator().manual_seed(3), cfg,
+                             cuda_device)
+    params["layer1"]["threshold"].fill_(0.1)
+    stream, _ = _dvs_stream(cuda_device, 12)
+    planes = aer.input_planes(stream, 25, 4096, polarity_mode="two_channel")
+    counts = capacity.measure_step_counts(params, cfg, planes,
+                                          backend="fused")
+    plan = capacity.autotune(params, cfg, planes, counts=counts)
+    assert plan.capacities[0] < 8192 and plan.capacities[1] == 512
+    trains = [planes[:, i].cpu().numpy() for i in range(12)]
+    over = trains[0].copy()
+    over[3] = 1.0  # every input spikes at one step: over any C below 8192
+    out = {}
+    for name, caps in (("tuned", plan.capacities), ("full", None)):
+        eng = SNNStreamEngine(params, cfg, num_slots=8, chunk_steps=5,
+                              capacities=caps, device=cuda_device)
+        out[name] = eng.run([StreamRequest(spikes=x)
+                             for x in trains + [over]])
+        assert eng.C == (plan.capacities[0] if caps else 8192)
+    assert [_fields(r) for r in out["tuned"][:12]] == [
+        _fields(r) for r in out["full"][:12]]
+    assert out["tuned"][12].fault == "capacity_overflow"
+    assert out["full"][12].disposition == "ok"
+
+
+@pytest.mark.cuda
+def test_bcnn_on_card_equals_cpu(cuda_device):
+    from repro_torch.core import bcnn
+    from repro_torch.data import collision
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = bcnn.BCNNConfig()
+    params = bcnn.init_params(torch.Generator().manual_seed(0), cfg)
+    x, y, _, _ = collision.generate(collision.CollisionConfig(
+        image_hw=64, num_train=16, num_test=0))
+    cpu = bcnn.forward(params, torch.from_numpy(x), cfg)
+    card = bcnn.forward({n: {k: v.to(cuda_device) for k, v in lp.items()}
+                         for n, lp in params.items()},
+                        torch.from_numpy(x).to(cuda_device), cfg)
+    torch.testing.assert_close(card.cpu(), cpu, atol=1e-4, rtol=1e-4)
