@@ -41,12 +41,21 @@ Phases, in order; any failure exits non-zero:
    library yardstick) in every case, and computes the bound from this
    run's events.
 6. Training path: ``EventTrainer`` at 4096-512-2, T = 25, B = 32, signed
-   DVS, every layer's forward through the kernel, then one ``evaluate``
-   through ``snn_chunk``.  Checks finite losses, the launch counts
-   (steps x T x L aer launches), one step bit-equal in loss and gradients
-   to the same step on the plain version, and two seeded runs
-   bit-identical; prints ms/step and a ``torch.profiler`` breakdown with
-   the aer kernel's device time split by variant (layer 0, layer 1).
+   DVS, every layer's forward through the kernel, its default step
+   (``jit=True, donate=True``) one CUDA graph replay over state updated in
+   place, then one ``evaluate`` through ``snn_chunk``.  20 steps in log
+   windows of 5, graphed, graphed again and eager (``jit=False``) from one
+   seed: params, Adam state and every metric bit-identical at every
+   window.  Checks finite losses, 1 capture and no re-capture
+   (``RecompileDetector``), the aer launches captured x replays = steps x
+   T x L plus one warm-up step's eager launches, a steady replay under
+   ``torch.cuda.set_sync_debug_mode("error")``, one step bit-equal in
+   loss and gradients to the same step on the plain version, and
+   ``evaluate``'s one ``snn_chunk`` launch; prints ms/step of both runs
+   (in ``run()`` and of the step alone) and a ``torch.profiler``
+   breakdown of 2 graphed steps in ``run()``, 2 graphed steps alone and 2
+   eager steps (the card's busy share, the aer kernel's device time split
+   by variant: layer 0, layer 1).
 7. Hardware path (the public kernel API, ``repro_torch.kernels.ops``):
    ``ops.snn_layer_forward`` layer by layer at 4096-512-2, T = 25, B = 8
    over deterministically rate-coded collision images, with refractory 0
@@ -115,8 +124,8 @@ Phases, in order; any failure exits non-zero:
    CPU; one training step's loss finite; ``energy_reduction`` of the
    measured DVS events against the BCNN baselines (a 45 nm model).
 11. Prints the kernel table as one JSON line (the aer row also carries
-   the sparse and layer-1 times, every phase-5 case and the inference
-   launches of phase 10; the snn_chunk row phase 10's DVS and tuned-C
+   the sparse and layer-1 times, every phase-5 case, phase 6's graph
+   counts and the inference launches of phase 10; the snn_chunk row phase 10's DVS and tuned-C
    cases; the lif row its second form and floor; the q115 row each shape
    and saturation), then ``{"ok": true, ...}`` as the last line.
 
@@ -135,7 +144,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SLOTS, TC, SEED = 8, 5, 0
-TRAIN_BATCH, TRAIN_STEPS = 32, 3
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WINDOW = 32, 20, 5
 HW_BATCH = 8  # benchmarks/table4_network.py's batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -1182,79 +1191,155 @@ def _grads(torch, trainer, params, batch):
     return [loss.detach()] + list(torch.autograd.grad(loss, tree_leaves(live)))
 
 
+def train_windows(torch, tr, batches, dev):
+    """``TRAIN_STEPS`` steps of ``tr`` from the seed in ``TRAIN_WINDOW``-step
+    log windows.  Returns each window's state (params and Adam state,
+    copied) and metrics, the ms a step of ``run`` (the batches rendered on
+    the card inside the loop; each window ends in its one device read)
+    and the final state."""
+    from repro_torch.tree import tree_leaves
+
+    state = tr.init_state(SEED)
+    it = batches()
+    windows, run_s = [], 0.0
+    for _ in range(TRAIN_STEPS // TRAIN_WINDOW):
+        t0 = time.perf_counter()
+        state, metrics = tr.run(state, it, TRAIN_WINDOW,
+                                log_every=TRAIN_WINDOW, log_fn=lambda _: None)
+        run_s += time.perf_counter() - t0
+        windows.append(([x.clone() for x in
+                         tree_leaves((state.params, state.opt_state))],
+                        metrics))
+    torch.cuda.synchronize(dev)
+    return windows, run_s / TRAIN_STEPS * 1e3, state
+
+
+def step_ms(torch, tr, state, batches):
+    """ms a step of ``step_fn`` alone over pre-rendered batches (host clock
+    around the steps and one synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        state, _ = tr.step_fn(state, b)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / len(batches) * 1e3, state
+
+
 def phase_train(torch, dev, card):
-    """Phase 6: event-driven training at full width through the kernel."""
+    """Phase 6: event-driven training at full width through the kernel,
+    the default step one CUDA graph replay, against the eager step."""
     from unittest import mock
 
     import numpy as np
 
+    from repro_torch.analysis import RecompileDetector
     from repro_torch.kernels import aer_matmul as aer_mod
     from repro_torch.kernels import snn_chunk as chunk_mod
     from repro_torch.sparse_train.trainer import EventTrainer, dvs_batches
-    from repro_torch.tree import tree_leaves
+    from repro_torch.train.loop import StaticStep
 
     tcfg = train_config()
+    aer_fn = aer_mod.aer_spike_matmul_batched
+    L = tcfg.snn_config().num_layers
+    per_step = tcfg.num_steps * L
 
-    def trainer():
-        return EventTrainer(tcfg, use_kernel=True, device=dev, seed=SEED)
+    def trainer(jit=True):
+        return EventTrainer(tcfg, use_kernel=True, device=dev, seed=SEED,
+                            jit=jit)
 
     def batches():
         return dvs_batches(SEED, TRAIN_BATCH, tcfg, device=dev)
 
-    def quiet(_):
-        pass
-
-    warm = trainer()  # allocator, first launches
-    warm.run(warm.init_state(SEED), batches(), 1, log_fn=quiet)
+    warm = trainer()  # allocator, the kernels' build, a first capture
+    warm.run(warm.init_state(SEED), batches(), 1, log_fn=lambda _: None)
     torch.cuda.synchronize()
 
-    runs = []
-    for run in range(2):
-        tr = trainer()
-        state0 = tr.init_state(SEED)
-        eval_batch = next(dvs_batches(SEED + 9, TRAIN_BATCH, tcfg, device=dev))
-        torch.cuda.synchronize()
-        if run == 0:  # the main path: counts from 0, read right after
-            aer_mod.aer_spike_matmul_batched.launches = 0
-            chunk_mod.snn_chunk.launches = 0
-        t0 = time.perf_counter()
-        state, metrics = tr.run(state0, batches(), TRAIN_STEPS,
-                                log_every=TRAIN_STEPS, log_fn=quiet)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        acc = float(tr.evaluate(state.params, eval_batch)["accuracy"])
-        if run == 0:
-            launches = aer_mod.aer_spike_matmul_batched.launches
-            chunk_launches = chunk_mod.snn_chunk.launches
-        runs.append((state, metrics, wall))
-        if not (np.isfinite(metrics["loss"]) and
-                all(bool(torch.isfinite(x).all()) for x in
-                    tree_leaves(state.params))):
-            fail(f"training run {run}: loss {metrics['loss']} or params "
-                 f"not finite")
-    L = tcfg.snn_config().num_layers
-    want = TRAIN_STEPS * tcfg.num_steps * L
-    if launches != want:
-        fail(f"aer_spike_matmul_batched launched {launches} times over "
-             f"{TRAIN_STEPS} steps, want steps x T x L = {want}")
+    # the main path: the graphed trainer, counts from 0, read right after
+    tr = trainer()
+    if not isinstance(tr.step_fn, StaticStep) or not tr.step_fn.donate:
+        fail("EventTrainer's default step is not the donated static step")
+    eval_batch = next(dvs_batches(SEED + 9, TRAIN_BATCH, tcfg, device=dev))
+    torch.cuda.synchronize()
+    aer_fn.launches = aer_fn.captured = 0
+    chunk_mod.snn_chunk.launches = 0
+    with RecompileDetector() as det:
+        det.track("train_step", tr.step_fn, allowed=1)  # the cold start
+        graph_windows, graph_ms, state = train_windows(torch, tr, batches, dev)
+    acc = float(tr.evaluate(state.params, eval_batch)["accuracy"])
+    eager_launches, captured = aer_fn.launches, aer_fn.captured
+    chunk_launches = chunk_mod.snn_chunk.launches
+    step = tr.step_fn
+    if step.captures != 1 or det.cache_growth("train_step") != 1 \
+            or det.unexpected():
+        fail(f"the graphed step captured {step.captures} time(s) "
+             f"(re-captures: {det.unexpected()})")
+    if captured != per_step or step.replays != TRAIN_STEPS:
+        fail(f"{captured} aer launches captured, {step.replays} replays: "
+             f"want T x L = {per_step} and {TRAIN_STEPS}")
+    if eager_launches != per_step:
+        fail(f"{eager_launches} eager aer launches: want the one warm-up "
+             f"step's T x L = {per_step}")
     if chunk_launches != 1:
         fail(f"evaluate launched snn_chunk {chunk_launches} times, want 1")
-    (sa, ma, wall), (sb, mb, _) = runs
-    if ma != mb or not all(torch.equal(x, y) if isinstance(x, torch.Tensor)
-                           else x == y for x, y in
-                           zip(tree_leaves(sa), tree_leaves(sb))):
-        fail("two training runs from one seed differ")
-    ms_step = wall / TRAIN_STEPS * 1e3
-    print(f"train: {tcfg.input_size}-{tcfg.hidden}-2 T={tcfg.num_steps} "
-          f"B={TRAIN_BATCH}, "
-          f"{TRAIN_STEPS} steps in {wall:.3f} s ({ms_step:.1f} ms/step, "
-          f"data rendered on the card inside the step loop) | aer launches "
-          f"{launches} (= steps x T x L) | snn_chunk launches "
-          f"{chunk_launches} (evaluate) | final loss {ma['loss']:.4f}, "
-          f"events l0/l1 {ma['events_l0']:.0f}/{ma['events_l1']:.0f}, eval "
-          f"accuracy {acc:.3f} | two seeded runs bit-identical | on {card}")
+    replays = step.replays
+    launches = eager_launches + captured * replays
+    for leaves, metrics in graph_windows:
+        if not (np.isfinite(metrics["loss"]) and
+                all(bool(torch.isfinite(x).all()) for x in leaves)):
+            fail(f"graphed run: loss {metrics['loss']} or state not finite")
 
-    tr = trainer()
+    # a steady replay reads the host nowhere
+    it = batches()
+    steady = [next(it) for _ in range(2 * TRAIN_WINDOW)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = tr.step_fn(state, steady[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph_step_ms, state = step_ms(torch, tr, state, steady)
+
+    # the same run twice more: graphed again, and eager
+    again, _, _ = train_windows(torch, trainer(), batches, dev)
+    eager_tr = trainer(jit=False)
+    eager_windows, eager_ms, eager_state = train_windows(
+        torch, eager_tr, batches, dev)
+    eager_step_ms, _ = step_ms(torch, eager_tr, eager_state, steady)
+
+    def differ(a, b):
+        return [i for i, ((la, ma), (lb, mb)) in enumerate(zip(a, b))
+                if ma != mb or not all(torch.equal(x, y)
+                                       for x, y in zip(la, lb))]
+
+    if differ(graph_windows, again):
+        fail(f"two graphed runs from one seed differ at windows "
+             f"{differ(graph_windows, again)}")
+    if differ(graph_windows, eager_windows):
+        fail(f"the graphed and the eager run differ at windows "
+             f"{differ(graph_windows, eager_windows)}")
+    last = graph_windows[-1][1]
+    n_win = len(graph_windows)
+    print(f"train: {tcfg.input_size}-{tcfg.hidden}-2 T={tcfg.num_steps} "
+          f"B={TRAIN_BATCH}, {TRAIN_STEPS} steps in {n_win} log windows of "
+          f"{TRAIN_WINDOW} | final loss {last['loss']:.4f}, events l0/l1 "
+          f"{last['events_l0']:.0f}/{last['events_l1']:.0f}, eval accuracy "
+          f"{acc:.3f} | graphed, graphed again and eager runs bit-identical "
+          f"at all {n_win} windows (params, Adam state, {len(last)} metrics) "
+          f"| on {card}")
+    print(f"train[graph]: {graph_ms:.2f} ms/step in run() (batches rendered "
+          f"on the card in the loop), {graph_step_ms:.2f} ms/step of the step "
+          f"alone | captures {step.captures}, re-captures 0 "
+          f"(RecompileDetector clean), replays {replays} x {captured} "
+          f"captured aer launches = {captured * replays} (= steps x T x "
+          f"L) + {eager_launches} warm-up launches | snn_chunk launches "
+          f"{chunk_launches} (evaluate) | a steady replay passes "
+          f"set_sync_debug_mode('error') | on {card}")
+    print(f"train[eager]: {eager_ms:.2f} ms/step in run(), {eager_step_ms:.2f} "
+          f"ms/step of the step alone | graph speed-up "
+          f"{eager_ms / graph_ms:.2f}x in run(), "
+          f"{eager_step_ms / graph_step_ms:.2f}x the step alone | on {card}")
+
+    tr = trainer(jit=False)
     params = tr.init_state(SEED).params
     batch = next(batches())
     kern = _grads(torch, tr, params, batch)
@@ -1270,29 +1355,47 @@ def phase_train(torch, dev, card):
         fail(f"the kernel step and the plain-version step differ at {bad}")
     print(f"train: one step's loss and all {len(kern) - 1} gradients "
           f"bit-equal on the plain version ({plain_s:.1f} s) and the kernel")
-    profile_train(torch, trainer(), batches, card)
-    return {"launches": launches, "ms_per_step": ms_step}
+    busy = {name: profile_train(torch, trainer(jit), batches, card, name,
+                                alone)
+            for name, jit, alone in (("graph", True, False),
+                                     ("graph, step alone", True, True),
+                                     ("eager", False, False))}
+    return {"launches": launches, "captured": captured,
+            "replays": replays, "warmup_launches": eager_launches,
+            "ms_per_step": graph_ms, "ms_per_step_eager": eager_ms,
+            "step_ms": graph_step_ms, "step_ms_eager": eager_step_ms,
+            "busy_share": busy}
 
 
-def profile_train(torch, tr, batches, card):
+def profile_train(torch, tr, batches, card, name, alone=False):
     """Two training steps under torch.profiler: device time by kernel and
-    the device's busy share of the traced wall (not gated)."""
+    the device's busy share of the traced wall (not gated).  The steps run
+    through ``run()``, which renders each batch on the card in the loop,
+    or with ``alone`` through ``step_fn`` on batches rendered before the
+    trace.  Returns the busy share, None where the profiler recorded no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     state = tr.init_state(SEED)
     it = batches()
-    state, _ = tr.run(state, it, 1, log_fn=lambda _: None)
+    state, _ = tr.run(state, it, 1, log_fn=lambda _: None)  # the capture
+    ready = [next(it) for _ in range(2)] if alone else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tr.run(state, it, 2, log_every=2, log_fn=lambda _: None)
+        if alone:
+            for b in ready:
+                state, _ = tr.step_fn(state, b)
+        else:
+            tr.run(state, it, 2, log_every=2, log_fn=lambda _: None)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_us = device_time_us(torch, prof)
     busy_ms = sum(device_us.values()) / 1e3
     if busy_ms == 0:
-        print("profile train: the profiler recorded no device time: not measured")
-        return
+        print(f"profile train[{name}]: the profiler recorded no device time: "
+              f"not measured")
+        return None
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
     # the aer kernel by variant: merged = layer 0, narrow = layer 1
     by_variant = {v: sum(us for k, us in device_us.items()
@@ -1300,12 +1403,15 @@ def profile_train(torch, tr, batches, card):
                   for v in ("merged", "rows", "narrow", "split")}
     aer_ms = sum(by_variant.values())
     split = ", ".join(f"{v} {ms:.3f} ms" for v, ms in by_variant.items() if ms)
-    print(f"profile train: traced wall {wall_ms:.1f} ms over 2 steps | device "
-          f"busy {busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}) | aer kernel "
-          f"{aer_ms:.3f} ms ({aer_ms / busy_ms:.1%} of busy; {split}; "
-          f"{aer_ms / 2:.3f} ms a step) | on {card}")
-    for name, us in top:
-        print(f"profile train:   {us / 1e3:8.3f} ms  {name[:90]}")
+    where = "rendered before the trace" if alone else "rendered in the loop"
+    print(f"profile train[{name}]: traced wall {wall_ms:.1f} ms over 2 steps "
+          f"(batches {where}) | device busy {busy_ms:.1f} ms "
+          f"({busy_ms / wall_ms:.1%}) | aer kernel {aer_ms:.3f} ms "
+          f"({aer_ms / busy_ms:.1%} of busy; {split}; {aer_ms / 2:.3f} ms a "
+          f"step) | on {card}")
+    for kname, us in top:
+        print(f"profile train[{name}]:   {us / 1e3:8.3f} ms  {kname[:90]}")
+    return busy_ms / wall_ms
 
 
 def kernel_ms(fn, reps=20):
@@ -2199,6 +2305,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/aer_matmul.cu",
         "replaces": "src/repro/kernels/aer_matmul.py:126",
         "launches": train_run["launches"],
+        "launches_graph": {k: train_run[k] for k in (
+            "captured", "replays", "warmup_launches")},
         "max_abs_err": max(c["max_abs_err"] for c in aer.values()),
         "ms": dense["ms"],
         "plain_ms": dense["plain_ms"],

@@ -122,6 +122,13 @@ def dropout(
     and scale the kept ones by ``1 / (1 - rate)``.  The draws come from
     ``generator``, which must live on ``x``'s device."""
     u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    return apply_dropout(x, u, rate)
+
+
+def apply_dropout(x: torch.Tensor, u: torch.Tensor, rate: float) -> torch.Tensor:
+    """``dropout`` on uniforms ``u`` (x's shape) drawn ahead of time, so a
+    captured step draws nothing: equal to ``dropout`` bit for bit when
+    ``u`` holds the draw it would make."""
     keep = (u < 1.0 - rate).to(x.dtype)
     return x * keep / (1.0 - rate)
 

@@ -8,7 +8,10 @@ for B streams of E events each, and ``aer_spike_matmul`` the same for one
 stream, ``out[n]``, in int32 (the reference's single-stream kernel, run
 here on the batched kernel with B = 1, where ``plan`` splits E across
 CTAs).  On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/aer_matmul.cu`` (built at first use) or raises; on a CPU tensor it
+``csrc/aer_matmul.cu`` (built at first use) or raises, and a CUDA graph
+may capture it (``captured`` counts such launches beside ``launches``;
+the launcher raises the shared-memory limit once, at the first eager
+launch that needs it, never during a capture); on a CPU tensor it
 runs ``aer_spike_matmul_batched_ref``, the plain PyTorch version, which
 adds one event at a time in the kernel's order, so on the card the two
 agree value for value.
@@ -180,11 +183,23 @@ def aer_spike_matmul_batched(
     if not addrs.is_cuda:
         return aer_spike_matmul_batched_ref(addrs, values, weights)
     out = _launch(addrs, values, weights)
-    aer_spike_matmul_batched.launches += 1
+    _count(aer_spike_matmul_batched)
     return out
 
 
 aer_spike_matmul_batched.launches = 0  # kernel launches since the last reset
+# launches recorded into CUDA graphs being captured since the last reset; a
+# graph launches each of them once per replay (the trainer counts replays)
+aer_spike_matmul_batched.captured = 0
+
+
+def _count(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel: ``captured`` when a CUDA
+    graph records it (it then runs at each replay), else ``launches``."""
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
 
 
 def _launch(addrs: Tensor, values: Tensor, weights: Tensor) -> Tensor:
@@ -278,11 +293,12 @@ def aer_spike_matmul(
         return aer_spike_matmul_ref(addrs, values, weights_q)
     _check_single(addrs, values, weights_q)
     out = _launch(addrs[None], values.to(torch.int32)[None], weights_q)
-    aer_spike_matmul.launches += 1
+    _count(aer_spike_matmul)
     return out[0]
 
 
 aer_spike_matmul.launches = 0  # kernel launches since the last reset
+aer_spike_matmul.captured = 0  # launches recorded into CUDA graphs
 
 
 def aer_spike_matmul_ref(

@@ -562,11 +562,43 @@ __global__ void __launch_bounds__(AER_MAX_THREADS)
   ring_cta<VEC>(addrs, values, w, out, E, K, N, cols, e_chunk, atomic);
 }
 
-template <typename Kernel>
-static cudaError_t allow_smem(Kernel kernel, int smem) {
+// Raise the dynamic shared-memory limit of every kernel instantiation to
+// AER_SMEM_MAX once a device, at the first launch that needs more than the
+// default 48 KB, and never on a launch that a CUDA graph records:
+// cudaFuncSetAttribute is not a stream operation and must not run during a
+// capture.  A capture whose shape needs the raise before any eager launch
+// has made it fails here; a caller runs the shape once eagerly first.
+static cudaError_t allow_smem(int smem, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static bool raised[kMaxDevices] = {};
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (raised[dev]) return cudaSuccess;
+  cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+  if ((err = cudaStreamIsCapturing(stream, &capture)) != cudaSuccess)
+    return err;
+  if (capture != cudaStreamCaptureStatusNone)
+    return cudaErrorStreamCaptureUnsupported;
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(&aer_rows_kernel<true>),
+      reinterpret_cast<const void*>(&aer_rows_kernel<false>),
+      reinterpret_cast<const void*>(&aer_narrow_kernel<true>),
+      reinterpret_cast<const void*>(&aer_narrow_kernel<false>),
+      reinterpret_cast<const void*>(&aer_split_kernel<true>),
+      reinterpret_cast<const void*>(&aer_split_kernel<false>),
+      reinterpret_cast<const void*>(&aer_merged_kernel<true>),
+      reinterpret_cast<const void*>(&aer_merged_kernel<false>),
+  };
+  for (const void* k : kernels) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               AER_SMEM_MAX);
+    if (err != cudaSuccess) return err;
+  }
+  raised[dev] = true;
+  return cudaSuccess;
 }
 
 // The geometry comes from kernels/aer_matmul.py::plan; this only checks
@@ -609,10 +641,10 @@ extern "C" int aer_matmul_launch(const void* addrs, const void* values,
   const dim3 grid(B / streams + (B % streams != 0), slices, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* a = static_cast<const int*>(addrs);
-  cudaError_t err = cudaSuccess;
+  cudaError_t err = allow_smem(smem, s);
+  if (err != cudaSuccess) return err;
   if (variant == AER_SPLIT) {
     auto k = vec ? &aer_split_kernel<true> : &aer_split_kernel<false>;
-    if ((err = allow_smem(k, smem)) != cudaSuccess) return err;
     k<<<grid, threads, smem, s>>>(a, static_cast<const int*>(values),
                                   static_cast<const int16_t*>(w),
                                   static_cast<int*>(out), E, K, N, cols,
@@ -624,13 +656,11 @@ extern "C" int aer_matmul_launch(const void* addrs, const void* values,
   float* o = static_cast<float*>(out);
   if (variant == AER_MERGED) {
     auto k = vec ? &aer_merged_kernel<true> : &aer_merged_kernel<false>;
-    if ((err = allow_smem(k, smem)) != cudaSuccess) return err;
     k<<<grid, threads, smem, s>>>(a, v, wf, o, B, E, K, N, cols);
   } else {
     auto k = variant == AER_NARROW
                  ? (vec ? &aer_narrow_kernel<true> : &aer_narrow_kernel<false>)
                  : (vec ? &aer_rows_kernel<true> : &aer_rows_kernel<false>);
-    if ((err = allow_smem(k, smem)) != cudaSuccess) return err;
     k<<<grid, threads, smem, s>>>(a, v, wf, o, E, K, N, cols);
   }
   return cudaGetLastError();

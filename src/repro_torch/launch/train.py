@@ -7,7 +7,9 @@
 trains the paper's 4096-512-2 network with surrogate gradients through the
 event path, every layer's forward integration through the
 ``aer_spike_matmul_batched`` CUDA kernel, on synthetic DVS collision
-batches rendered on the card.  It runs on the card and raises without a
+batches rendered on the card.  The trainer keeps the reference's
+defaults (``jit=True, donate=True``): each step is one CUDA graph replay
+over state updated in place.  It runs on the card and raises without a
 GPU unless ``--device cpu`` is given (small sizes only: there the kernel's
 plain version walks events one at a time).  With ``--ckpt`` and
 ``--resume auto`` it resumes from the newest intact checkpoint, on the
@@ -69,6 +71,10 @@ def _train_snn_events(args) -> None:
         args.steps,
     )
     print("final:", metrics)
+    step = trainer.step_fn
+    print(f"step: static buffers, donated, captures {step.captures}, graph "
+          f"replays {step.replays}" + ("" if device.type == "cuda" else
+                                       " (the CPU runs it uncaptured)"))
     trainer.export_obs(
         metrics_json=args.metrics_json,
         trace_out=args.trace_out,

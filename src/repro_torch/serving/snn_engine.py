@@ -100,6 +100,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.checkpoint.manager import (
     CheckpointCorruptError,
     gc_orphan_tmpdirs,
@@ -1014,6 +1015,10 @@ class SNNStreamEngine:
         # staged fault bits report exactly once, then clear
         meta["fault"].zero_()
 
+    # the reference's donate_argnums of its jitted chunk: the states and
+    # the metadata are updated in place (analysis.contracts reads this)
+    _chunk.donate_argnums = (1, 3)
+
     def _capture(self) -> None:
         """Capture ``_chunk`` over the static buffers into a CUDA graph.
 
@@ -1042,6 +1047,7 @@ class SNNStreamEngine:
         self.graph_launches_per_replay = chunk_mod.snn_chunk.captured - before
         self._graph = graph
         self.graph_captures += 1
+        contracts.note_capture()
         self._note_captures()
 
     def _note_captures(self) -> None:

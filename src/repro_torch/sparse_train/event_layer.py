@@ -104,6 +104,7 @@ def event_bptt_forward(
     capacity: Optional[int] = None,
     use_kernel: bool = False,
     prepared: bool = False,
+    dropout_u: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Differentiable event-driven analog of ``core.snn.forward``.
 
@@ -112,6 +113,10 @@ def event_bptt_forward(
     the per-layer event backward with the surrogate spike backward.
     ``prepared=True`` is for callers holding already fake-quantized
     params; QAT must re-quantize live params every step.
+
+    Dropout's uniforms are ``dropout_u`` (T, B, hidden), drawn ahead of
+    time (a captured step draws nothing), or else ``dropout_planes`` drawn
+    from ``generator`` here: the two give the same masks.
 
     Returns:
       out_mem:    (T, B, C) output membrane trace (for the loss)
@@ -126,8 +131,11 @@ def event_bptt_forward(
     B = spikes.shape[1]
     L = cfg.num_layers
     drop = train and cfg.dropout_rate > 0.0
-    if drop and generator is None:
-        raise ValueError("a generator is required when train=True")
+    if drop and generator is None and dropout_u is None:
+        raise ValueError("a generator or dropout_u is required when train=True")
+    if drop and dropout_u is None:
+        dropout_u = dropout_planes(generator, spikes.shape[0], B,
+                                   cfg.layer_sizes[1])
     dev = spikes.device
     layers = [p[f"layer{i}"] for i in range(L)]
     betas = [snn.effective_beta(lp) for lp in layers]
@@ -138,7 +146,7 @@ def event_bptt_forward(
     ev = [torch.zeros((B,), device=dev) for _ in range(L)]
     act = [torch.zeros((), device=dev) for _ in range(L)]
     mems, spks = [], []
-    for x_t in spikes:
+    for t, x_t in enumerate(spikes):
         h = x_t
         for i, lp in enumerate(layers):
             cap = capacity if (capacity is not None and i == 0) else None
@@ -153,10 +161,24 @@ def event_bptt_forward(
             act[i] = act[i] + torch.sum(spk) / B
             h = spk
             if i == 0 and drop:
-                h = snn.dropout(spk, cfg.dropout_rate, generator)
+                h = snn.apply_dropout(spk, dropout_u[t], cfg.dropout_rate)
         mems.append(states[-1].u)
         spks.append(h)
     return torch.stack(mems), torch.stack(spks), torch.stack(ev), torch.stack(act)
+
+
+def dropout_planes(
+    generator: torch.Generator, num_steps: int, batch: int, hidden: int
+) -> Tensor:
+    """(T, batch, hidden) float32 uniforms on the generator's device: the
+    T draws ``snn.dropout`` would make step by step, in its order and
+    shapes (one (batch, hidden) plane a step), so the masks they give
+    equal the step-by-step draw bit for bit."""
+    return torch.stack([
+        torch.rand((batch, hidden), generator=generator, dtype=torch.float32,
+                   device=generator.device)
+        for _ in range(num_steps)
+    ])
 
 
 def event_eval_forward(

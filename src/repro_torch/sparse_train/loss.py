@@ -92,12 +92,15 @@ def event_loss_fn(
     generator: Optional[torch.Generator] = None,
     capacity: Optional[int] = None,
     use_kernel: bool = False,
+    dropout_u: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Event-driven analog of ``core.snn.loss_fn`` + energy objective.
 
     With ``energy_lambda == 0`` the loss and its gradient match the dense
-    ``snn.loss_fn`` to float tolerance.  Metrics are detached 0-dim
-    tensors on the device; reading them is the caller's sync.
+    ``snn.loss_fn`` to float tolerance.  Dropout draws from ``generator``
+    or takes the pre-drawn ``dropout_u`` (``event_bptt_forward``).
+    Metrics are detached 0-dim tensors on the device; reading them is the
+    caller's sync.
     """
     out_mem, out_spikes, events, act = event_layer.event_bptt_forward(
         params,
@@ -107,6 +110,7 @@ def event_loss_fn(
         generator=generator,
         capacity=capacity,
         use_kernel=use_kernel,
+        dropout_u=dropout_u,
     )
     task_loss = snn.membrane_ce_loss(out_mem, labels)
     energy_nj = energy_regularizer_nj(cfg.layer_sizes, act)

@@ -29,7 +29,7 @@ from repro_torch.core import snn
 from repro_torch.events import aer
 from repro_torch.optim import adam, chain_clip
 from repro_torch.serving.snn_engine import resolve_device
-from repro_torch.sparse_train.event_layer import event_eval_forward
+from repro_torch.sparse_train.event_layer import dropout_planes, event_eval_forward
 from repro_torch.sparse_train.loss import event_loss_fn
 from repro_torch.train import loop
 
@@ -86,6 +86,12 @@ class EventSNNModel:
       step_seed: (B,) int64 on the CPU, the data stream's step counter;
                  with the run ``seed`` it seeds the dropout generator
                  (unused when the config has no dropout)
+
+    ``loss`` is two parts: ``prepare``, on the host, seeds the dropout
+    generator from ``step_seed`` and draws the masks' uniforms into the
+    batch (``dropout_u``, (B, T, hidden)); the rest reads the device only,
+    so the trainer's ``StaticStep`` captures it in a CUDA graph and runs
+    ``prepare`` before each replay.
     """
 
     def __init__(self, cfg: snn.SNNConfig, *, energy_lambda: float = 0.0,
@@ -105,18 +111,29 @@ class EventSNNModel:
         # w + b + beta_raw + threshold
         return sum((fi + 3) * fo for fi, fo in zip(sizes[:-1], sizes[1:]))
 
+    def prepare(self, batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The host part of ``loss``: with dropout, the batch plus
+        ``dropout_u``, the T uniform planes drawn from a generator seeded by
+        ``(seed, step_seed[0])`` in the order the step-by-step draw takes
+        them.  A batch that has them already is returned as it is."""
+        if self.cfg.dropout_rate <= 0.0 or "dropout_u" in batch:
+            return batch
+        B, T = batch["spikes"].shape[:2]
+        gen = torch.Generator(device=batch["spikes"].device).manual_seed(
+            _mix(self.seed, int(batch["step_seed"][0]))
+        )
+        u = dropout_planes(gen, T, B, self.cfg.layer_sizes[1])
+        return {**batch, "dropout_u": u.transpose(0, 1)}  # (B, T, hidden)
+
     def loss(self, params, batch: Dict[str, Tensor]):
+        batch = self.prepare(batch)
         spikes = batch["spikes"].transpose(0, 1)  # (B,T,K) -> (T,B,K)
         train = self.cfg.dropout_rate > 0.0
-        gen = None
-        if train:
-            gen = torch.Generator(device=spikes.device).manual_seed(
-                _mix(self.seed, int(batch["step_seed"][0]))
-            )
         loss, metrics = event_loss_fn(
             params, spikes, batch["labels"], self.cfg,
-            energy_lambda=self.energy_lambda, train=train, generator=gen,
+            energy_lambda=self.energy_lambda, train=train,
             use_kernel=self.use_kernel,
+            dropout_u=batch["dropout_u"].transpose(0, 1) if train else None,
         )
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()
@@ -136,6 +153,9 @@ class EventTrainer(loop.Trainer):
     ``use_kernel=True`` runs every layer's forward integration through
     the ``aer_spike_matmul_batched`` kernel (its plain version on the
     CPU).  ``device=None`` means the card, and raises without one.
+    ``jit`` and ``donate`` are the substrate's, with the reference's
+    defaults: on the card the step is one CUDA graph replay over state
+    updated in place (``loop.StaticStep``).
     """
 
     def __init__(
@@ -151,6 +171,8 @@ class EventTrainer(loop.Trainer):
         accum_steps: int = 1,
         seed: int = 0,
         device=None,
+        jit: bool = True,
+        donate: bool = True,
     ):
         self.tcfg = tcfg
         self.snn_cfg = tcfg.snn_config()
@@ -161,7 +183,7 @@ class EventTrainer(loop.Trainer):
         self.device = model.device
         opt = optimizer if optimizer is not None else chain_clip(adam(lr), 1.0)
         super().__init__(model, opt, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-                         accum_steps=accum_steps)
+                         accum_steps=accum_steps, jit=jit, donate=donate)
         m = self.metrics
         self._m_layer_events = [
             m.counter(f"train.events.l{i}.total")

@@ -3,8 +3,19 @@ checkpoint/restart, straggler watchdog and ``repro_torch.obs`` wiring.
 
 A model is any object with ``init(seed) -> (params, aux)`` and
 ``loss(params, batch) -> (loss, metrics)``; params are a tree
-(``repro_torch.tree``) of float tensors.  ``make_train_step`` builds the
-eager step: autograd over the loss, the optimizer update, a new state.
+(``repro_torch.tree``) of float tensors.  A model may also have
+``prepare(batch) -> batch``, the host part of its loss (the event SNN
+seeds its dropout generator there and draws the masks' uniforms); its
+loss then takes a prepared batch and reads the host nowhere.
+``make_train_step`` builds the eager step: autograd over the loss, the
+optimizer update, a new state.
+
+``Trainer(jit=True, donate=True)``, the counterpart of the reference's
+``jax.jit(step, donate_argnums=(0,))``, runs the step as a
+``StaticStep``: over static state and batch buffers, captured once per
+batch signature into a ``torch.cuda.CUDAGraph`` on the card and replayed
+every step (uncaptured on the CPU, which has no graphs), the state
+updated in place.  ``jit=False`` is the eager step.
 
 Every ``Trainer`` carries a ``MetricsRegistry`` (``trainer.metrics``:
 step-time / loss / grad-norm histograms, step counters, latest-metrics
@@ -24,6 +35,7 @@ from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.timeseries import TimeSeriesSampler
@@ -40,12 +52,29 @@ class TrainState(NamedTuple):
     step: int  # host-side counter: reading it never waits on the device
 
 
-def make_train_step(
+def make_step_parts(
     model, optimizer: Optimizer, accum_steps: int = 1
-) -> Callable:
-    """(state, batch) -> (state, metrics).  With accum_steps > 1 the
-    batch's leading dim must be (accum_steps * microbatch); gradients are
-    summed over the microbatches in order and averaged."""
+) -> Tuple[Callable, Callable]:
+    """The step in two parts: ``host(batch) -> batch`` runs the model's
+    ``prepare`` on each microbatch (nothing without one), and
+    ``device(state, batch) -> (state, metrics)`` the rest, which reads the
+    host nowhere, so a CUDA graph can capture it.  With accum_steps > 1
+    the batch's leading dim must be (accum_steps * microbatch); gradients
+    are summed over the microbatches in order and averaged."""
+    prepare = getattr(model, "prepare", None)
+
+    def micro(batch, j):
+        return {k: v.reshape(accum_steps, -1, *v.shape[1:])[j]
+                for k, v in batch.items()}
+
+    def host(batch):
+        if prepare is None:
+            return batch
+        if accum_steps == 1:
+            return prepare(batch)
+        mbs = [prepare(micro(batch, j)) for j in range(accum_steps)]
+        added = [k for k in mbs[0] if k not in batch]
+        return {**batch, **{k: torch.cat([mb[k] for mb in mbs]) for k in added}}
 
     def grads_of(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -54,18 +83,14 @@ def make_train_step(
             grads = torch.autograd.grad(loss, tree_leaves(live))
         return loss.detach(), metrics, tree_unflatten(params, list(grads))
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    def device(state: TrainState, batch: Dict[str, torch.Tensor]):
         params, opt_state = state.params, state.opt_state
         if accum_steps == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
             gsum, lsum = None, 0.0
             for j in range(accum_steps):
-                mb = {
-                    k: v.reshape(accum_steps, -1, *v.shape[1:])[j]
-                    for k, v in batch.items()
-                }
-                l, _, g = grads_of(params, mb)
+                l, _, g = grads_of(params, micro(batch, j))
                 gsum = g if gsum is None else tree_map(torch.add, gsum, g)
                 lsum = lsum + l
             grads = tree_map(lambda g: g / accum_steps, gsum)
@@ -78,7 +103,153 @@ def make_train_step(
             metrics["grad_norm"] = global_norm(grads)
         return TrainState(params, opt_state, state.step + 1), metrics
 
+    return host, device
+
+
+def make_train_step(
+    model, optimizer: Optimizer, accum_steps: int = 1
+) -> Callable:
+    """The eager step, (state, batch) -> (state, metrics): the host part,
+    then the device part (``make_step_parts``), a new state each call."""
+    host, device = make_step_parts(model, optimizer, accum_steps)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        return device(state, host(batch))
+
     return train_step
+
+
+def same_storages(a: Tree, b: Tree) -> bool:
+    """Whether trees ``a`` and ``b`` hold the same storages, leaf by leaf."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.data_ptr() == y.data_ptr() and x.shape == y.shape
+        and x.stride() == y.stride() and x.dtype == y.dtype
+        and x.device == y.device
+        for x, y in zip(la, lb)
+    )
+
+
+def _copy_into(buffers: Tree, tree: Tree) -> None:
+    with torch.no_grad():
+        for buf, x in zip(tree_leaves(buffers), tree_leaves(tree)):
+            buf.copy_(x)
+
+
+class StaticStep:
+    """The step over static buffers: the counterpart of the reference's
+    ``jax.jit(step, donate_argnums=(0,) if donate else ())``.
+
+    The params and optimizer state live in one set of state buffers, and
+    each batch signature (keys, shapes, dtypes, devices) has one set of
+    static inputs.  A call runs the host part, copies the batch into its
+    static inputs and runs the device part over the buffers, writing the
+    new state into them after every read.  With CUDA buffers the device
+    part is captured once per signature into a ``torch.cuda.CUDAGraph``
+    and replayed: first a warm-up on copies of the state on a side stream
+    (it builds the kernels, raises their shared-memory limits, fills the
+    plan caches and advances no buffer), then the capture.  A failed
+    capture or replay raises; the step never falls back to running
+    eagerly.  On the CPU, which has no graphs, the same device part runs
+    uncaptured over the same buffers.
+
+    ``donate=True``: the state passed in becomes the state buffers and the
+    returned state holds the same storages, so the caller's state is
+    consumed.  A state that holds other storages rebinds the buffers and
+    drops the graphs (the next call captures again).  ``donate=False``:
+    the state is copied into the buffers and left as it was, and the
+    returned state is a copy.  ``load`` writes a state into the buffers (a
+    restore) without rebinding them.
+
+    Metrics come back as copies of the graph's outputs, on the device.
+    ``captures`` counts the signatures set up (each a graph capture on the
+    card), ``replays`` the graph replays; ``_cache_size()`` is the capture
+    count, as a jitted function's cache size is its compile count.
+    """
+
+    def __init__(self, host: Callable, device: Callable, *, donate: bool = True):
+        self.host = host
+        self.device = device
+        self.donate = bool(donate)
+        self.donate_argnums = (0,) if donate else ()
+        self.captures = 0
+        self.replays = 0
+        self._state: Optional[Tuple[Tree, Tree]] = None  # (params, opt_state)
+        self._entries: Dict[Tuple, Dict[str, Any]] = {}
+
+    def _cache_size(self) -> int:
+        return self.captures
+
+    def _bind(self, state: TrainState) -> None:
+        given = (state.params, state.opt_state)
+        if self._state is not None and same_storages(given, self._state):
+            return  # the buffers themselves: updated in place
+        if self.donate or self._state is None:
+            self._state = given if self.donate else tree_map(torch.clone, given)
+            self._entries.clear()  # a graph reads the buffers it captured
+        else:
+            _copy_into(self._state, given)
+
+    def _export(self, step: int) -> TrainState:
+        params, opt_state = self._state
+        if not self.donate:
+            params, opt_state = tree_map(torch.clone, (params, opt_state))
+        return TrainState(params, opt_state, step)
+
+    def load(self, state: TrainState) -> TrainState:
+        """Write ``state`` into the state buffers (binding it where there
+        are none yet); returns the state to pass to the next call."""
+        if self._state is None:
+            self._bind(state)
+        else:
+            _copy_into(self._state, (state.params, state.opt_state))
+        return self._export(state.step)
+
+    def _body(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The device part over the buffers; the writes come last."""
+        params, opt_state = self._state
+        new, metrics = self.device(TrainState(params, opt_state, 0), inputs)
+        _copy_into(self._state, (new.params, new.opt_state))
+        return metrics
+
+    def _build(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        entry = {"inputs": {k: v.clone() for k, v in batch.items()},
+                 "graph": None, "metrics": None}
+        first = tree_leaves(self._state)[0]
+        if first.is_cuda:
+            cur = torch.cuda.current_stream(first.device)
+            side = torch.cuda.Stream(first.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                copies = tree_map(torch.clone, self._state)
+                self.device(TrainState(*copies, 0), entry["inputs"])
+            cur.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                entry["metrics"] = self._body(entry["inputs"])
+            entry["graph"] = graph
+        self.captures += 1
+        contracts.note_capture()
+        return entry
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        batch = self.host(batch)
+        self._bind(state)
+        sig = tuple((k, tuple(v.shape), v.dtype, str(v.device))
+                    for k, v in sorted(batch.items()))
+        entry = self._entries.get(sig)
+        if entry is None:
+            entry = self._entries[sig] = self._build(batch)
+        else:
+            for k, buf in entry["inputs"].items():
+                buf.copy_(batch[k])
+        if entry["graph"] is None:
+            metrics = self._body(entry["inputs"])
+        else:
+            entry["graph"].replay()
+            self.replays += 1
+            metrics = {k: v.clone() for k, v in entry["metrics"].items()}
+        return self._export(state.step + 1), metrics
 
 
 @dataclasses.dataclass
@@ -108,7 +279,9 @@ class StragglerWatchdog:
 
 
 class Trainer:
-    """Checkpoint/restart-capable loop driving the step function."""
+    """Checkpoint/restart-capable loop driving the step function: a
+    ``StaticStep`` with ``jit=True`` (the default, as the reference's),
+    the eager step with ``jit=False``."""
 
     def __init__(
         self,
@@ -118,10 +291,17 @@ class Trainer:
         ckpt_every: int = 100,
         keep_n: int = 3,
         accum_steps: int = 1,
+        jit: bool = True,
+        donate: bool = True,
     ):
         self.model = model
         self.optimizer = optimizer
-        self.step_fn = make_train_step(model, optimizer, accum_steps)
+        if jit:
+            self.step_fn = StaticStep(
+                *make_step_parts(model, optimizer, accum_steps), donate=donate
+            )
+        else:
+            self.step_fn = make_train_step(model, optimizer, accum_steps)
         self.ckpt = (
             CheckpointManager(ckpt_dir, keep_n=keep_n, async_save=True)
             if ckpt_dir
@@ -210,7 +390,9 @@ class Trainer:
         """Resume from the newest intact checkpoint (a corrupt one falls
         back to the previous keep-N save), restoring params, optimizer
         state, step, seed and lifetime counters; init fresh from ``seed``
-        when no usable checkpoint exists."""
+        when no usable checkpoint exists.  A ``StaticStep`` gets the state
+        written into its buffers (``StaticStep.load``), so a graph it has
+        captured trains on the restored values."""
         state = self.init_state(seed)
         if self.ckpt is not None:
             _, restored = self.ckpt.restore_latest(self._ckpt_tree(state))
@@ -219,7 +401,9 @@ class Trainer:
                 for name, v in restored["metrics"].items():
                     c = self.metrics.counter(name)
                     c.inc(float(v) - c.value)
-                return restored["state"]
+                state = restored["state"]
+        if isinstance(self.step_fn, StaticStep):
+            return self.step_fn.load(state)
         return state
 
     def run(

@@ -1041,3 +1041,154 @@ def test_bcnn_on_card_equals_cpu(cuda_device):
                          for n, lp in params.items()},
                         torch.from_numpy(x).to(cuda_device), cfg)
     torch.testing.assert_close(card.cpu(), cpu, atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------- the graphed training step
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 4096, 4096, 512, False),  # merged
+                                   (2, 300, 60000, 64, False),  # rows
+                                   (32, 512, 512, 2, False),  # narrow
+                                   (1, 4096, 4096, 512, True)])  # split
+def test_aer_kernel_captured_and_replayed_equals_eager_on_card(cuda_device,
+                                                               shape):
+    """Each variant captured in a CUDA graph and replayed on new inputs
+    copied into its static buffers equals an eager launch bit for bit; the
+    capture counts once in ``captured`` and nothing in ``launches``."""
+    B, E, K, N, int16 = shape
+    fn = aer_mod.aer_spike_matmul_batched
+    a, v, w = _aer_inputs(B, E, K, N, 0.5, int16, cuda_device, seed=1)
+    fn(a, v, w)  # eager first: builds the kernel, raises its smem limit
+    torch.cuda.synchronize()
+    launches, captured = fn.launches, fn.captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(a, v, w)
+    assert fn.captured == captured + 1 and fn.launches == launches
+    for seed in (2, 3):
+        a2, v2, w2 = _aer_inputs(B, E, K, N, 0.5, int16, cuda_device, seed=seed)
+        a.copy_(a2)
+        v.copy_(v2)
+        w.copy_(w2)
+        graph.replay()
+        want = fn(a2, v2, w2)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert torch.equal(out, aer_mod.aer_spike_matmul_batched_ref(a2, v2, w2))
+    assert fn.captured == captured + 1
+
+
+def _small_trainer(d, jit, **kw):
+    from repro_torch.sparse_train import trainer as ev
+
+    tcfg = ev.EventTrainConfig(image_hw=16, hidden=64, num_steps=6,
+                               polarity_mode="signed", dropout_rate=0.2)
+    return ev.EventTrainer(tcfg, use_kernel=True, energy_lambda=0.05, seed=2,
+                           device=d, jit=jit, **kw)
+
+
+def _train_leaves(state):
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves((state.params, state.opt_state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adam", "schedule"])
+def test_graphed_event_trainer_equals_eager_on_card(cuda_device, opt):
+    """The default step (one CUDA graph replay) equals the eager step bit
+    for bit over 5 steps: params, Adam state and every metric; one
+    capture, T x L aer launches in it, a steady replay under
+    ``set_sync_debug_mode("error")``."""
+    from repro_torch import optim
+    from repro_torch.sparse_train import trainer as ev
+    from repro_torch.train import loop
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def make(jit):
+        kw = {}
+        if opt == "schedule":
+            kw["optimizer"] = optim.chain_clip(
+                optim.adam(optim.warmup_cosine(1e-3, 2, 10)), 1.0)
+        return _small_trainer(cuda_device, jit, **kw)
+
+    runs = {}
+    for jit in (True, False):
+        tr = make(jit)
+        state = tr.init_state(0)
+        it = ev.dvs_batches(0, 8, tr.tcfg, device=cuda_device)
+        before = aer_mod.aer_spike_matmul_batched.captured
+        steps = []
+        for i in range(5):
+            batch = next(it)
+            if jit and i == 3:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, m = tr.step_fn(state, batch)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            else:
+                state, m = tr.step_fn(state, batch)
+            steps.append(([x.clone() for x in _train_leaves(state)],
+                          {k: v.clone() for k, v in m.items()}))
+        torch.cuda.synchronize()
+        runs[jit] = steps
+        if jit:
+            assert isinstance(tr.step_fn, loop.StaticStep)
+            assert tr.step_fn.captures == 1 and tr.step_fn.replays == 5
+            L = tr.snn_cfg.num_layers
+            assert (aer_mod.aer_spike_matmul_batched.captured - before
+                    == tr.tcfg.num_steps * L)
+    for (gl, gm), (el, em) in zip(runs[True], runs[False]):
+        assert all(torch.equal(x, y) for x, y in zip(gl, el))
+        assert gm.keys() == em.keys()
+        assert all(torch.equal(gm[k], em[k]) for k in gm)
+
+
+@pytest.mark.cuda
+def test_restore_into_a_graphed_trainer_resumes_bit_for_bit_on_card(
+        cuda_device, tmp_path):
+    """A trainer that has captured its step restores a checkpoint into its
+    buffers (no buffer moves, no re-capture) and finishes equal to an
+    uninterrupted run."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.sparse_train import trainer as ev
+
+    def run(tr, state, n, start):
+        it = ev.dvs_batches(0, 8, tr.tcfg, start_step=start, device=cuda_device)
+        return tr.run(state, it, n, log_fn=lambda _: None)[0]
+
+    ref = _small_trainer(cuda_device, True)
+    s_ref = run(ref, ref.init_state(0), 4, 0)
+    first = _small_trainer(cuda_device, True, ckpt_dir=str(tmp_path))
+    run(first, first.init_state(0), 2, 0)  # saves step 2
+    second = _small_trainer(cuda_device, True)
+    s = run(second, second.init_state(5), 1, 7)  # captures over other data
+    ptrs = [x.data_ptr() for x in _train_leaves(s)]
+    second.ckpt = CheckpointManager(str(tmp_path))  # finds first's saves
+    s = second.restore_or_init(9)
+    assert s.step == 2 and [x.data_ptr() for x in _train_leaves(s)] == ptrs
+    s = run(second, s, 2, s.step)
+    torch.cuda.synchronize()
+    assert s.step == 4 and second.step_fn.captures == 1
+    for x, y in zip(_train_leaves(s), _train_leaves(s_ref)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_engine_ring_growth_is_within_the_capture_contract_on_card(cuda_device):
+    from repro_torch.analysis import RecompileDetector
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    eng = _serving_engine(cuda_device)
+    with RecompileDetector() as det:
+        det.track("chunk", eng, allowed=1)  # cold start
+        for x in _serving_trains([25, 25, 10], seed=1):
+            eng.submit(StreamRequest(spikes=x, num_steps=x.shape[0]))
+        eng.poll()
+        long = _serving_trains([40], seed=2)[0]
+        eng.submit(StreamRequest(spikes=long, num_steps=40))
+        eng.drain()  # grows the ring: the allowlisted re-capture
+    assert eng.graph_captures == 2 and det.cache_growth("chunk") == 2
+    assert det.backend_compiles == 2 and det.unexpected() == []

@@ -1,8 +1,9 @@
 """Port parity: crash-safe engine state and deadline-aware preemption
 (``snapshot``/``restore``, ``snapshot_auto``/``restore_latest_snapshot``,
 ``_park_slot``/``_resume_slot``), case by case after
-``tests/test_recovery.py`` (its engine half; the training-resume cases
-are not ported here).
+``tests/test_recovery.py``, and the trainer's full-state resume: a
+restore writes into the static step's buffers (``StaticStep.load``), so
+no state buffer moves.
 
 The port's own snapshot -> restore must be bit-exact: a restored engine
 finishes every window with the results of a run that was never
@@ -727,3 +728,82 @@ def test_serve_cli_injects_faults(capsys):
         r"(quarantined|injected|retries|demotions) (\d+)", plane)}
     assert 1 <= n["injected"] <= 3 and n["demotions"] == 0
     assert n["quarantined"] + n["retries"] >= 1
+
+
+
+# ------------------------------------------------- training full-state resume
+def _train_leaves(state):
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves((state.params, state.opt_state))
+
+
+def test_train_resume_is_bit_exact(tmp_path):
+    """train(6) == train(3) / restart / restore / train(3): params, Adam
+    state, step, seed and telemetry counters resume exactly (ckpt_every=3,
+    the data stream fast-forwarded via start_step), on the static-buffer
+    step.  A restore into a trainer that has stepped writes its buffers in
+    place: no state buffer moves."""
+    from repro_torch.sparse_train import trainer as ev
+
+    tcfg = ev.EventTrainConfig(image_hw=16, num_steps=6, hidden=16)
+
+    def make(ckpt_dir, every):
+        return ev.EventTrainer(tcfg, energy_lambda=0.01, ckpt_dir=ckpt_dir,
+                               ckpt_every=every, seed=0, device="cpu")
+
+    def run(tr, state, n):
+        it = ev.dvs_batches(0, 4, tcfg, start_step=state.step, device="cpu")
+        return tr.run(state, it, n, log_fn=lambda _: None)[0]
+
+    # uninterrupted reference: 6 steps straight through
+    t_ref = make(str(tmp_path / "ref"), 100)
+    s_ref = run(t_ref, t_ref.init_state(0), 6)
+
+    # interrupted: 3 steps, then a fresh trainer restores and finishes
+    d = str(tmp_path / "resume")
+    t1 = make(d, 3)
+    run(t1, t1.init_state(0), 3)
+    steps_after_3 = t1.metrics.counter("train.steps").value
+
+    t2 = make(d, 3)  # a restart: no shared python state
+    s2 = t2.restore_or_init(1)  # the seed comes back from the checkpoint
+    assert s2.step == 3 and t2.rng == 0
+    assert t2.metrics.counter("train.steps").value == steps_after_3
+    assert t2.metrics.counter("train.energy_pj.total").value == pytest.approx(
+        t1.metrics.counter("train.energy_pj.total").value)
+    buffers = [x.data_ptr() for x in _train_leaves(s2)]
+    s2 = run(t2, s2, 3)
+    assert [x.data_ptr() for x in _train_leaves(s2)] == buffers
+
+    assert s_ref.step == s2.step == 6
+    for a, b in zip(_train_leaves(s_ref), _train_leaves(s2)):
+        assert torch.equal(a, b)
+    assert t2.metrics.counter("train.steps").value == 6
+
+    # restore again (step 6) into the trainer that has stepped: in place
+    s3 = t2.restore_or_init(1)
+    assert s3.step == 6 and [x.data_ptr() for x in _train_leaves(s3)] == buffers
+    for a, b in zip(_train_leaves(s_ref), _train_leaves(s3)):
+        assert torch.equal(a, b)
+    assert t2.step_fn.captures == 1
+
+
+def test_train_resume_falls_back_past_corrupt_checkpoint(tmp_path):
+    """Byte-corrupting the newest training checkpoint degrades the
+    recovery point (previous keep-N save) instead of crashing resume."""
+    from repro_torch.sparse_train import trainer as ev
+
+    tcfg = ev.EventTrainConfig(image_hw=16, num_steps=6, hidden=16)
+    d = str(tmp_path / "ck")
+    t1 = ev.EventTrainer(tcfg, ckpt_dir=d, ckpt_every=2, seed=0, device="cpu")
+    t1.run(t1.init_state(0), ev.dvs_batches(0, 4, tcfg, device="cpu"), 4,
+           log_fn=lambda _: None)
+    assert t1.ckpt.all_steps() == [2, 4]
+
+    faults.corrupt_checkpoint(d)  # newest (step 4)
+    t2 = ev.EventTrainer(tcfg, ckpt_dir=d, ckpt_every=2, seed=0, device="cpu")
+    with pytest.warns(UserWarning, match="falling back"):
+        s2 = t2.restore_or_init(1)
+    assert s2.step == 2
+    assert t2.ckpt.fallbacks == 1

@@ -371,9 +371,12 @@ def test_corrupt_checkpoint_falls_back_to_the_previous_one(tmp_path):
 
 def test_accumulated_step_averages_microbatch_gradients():
     tcfg = ev_trainer.EventTrainConfig(image_hw=8, hidden=12, num_steps=4)
+    # donate=False: the case reuses ``state`` after each step, which a
+    # donating step would consume (update in place)
     tr = ev_trainer.EventTrainer(tcfg, accum_steps=2, device="cpu",
-                                 optimizer=optim.sgd(1.0, momentum=0.0))
-    one = ev_trainer.EventTrainer(tcfg, device="cpu",
+                                 optimizer=optim.sgd(1.0, momentum=0.0),
+                                 donate=False)
+    one = ev_trainer.EventTrainer(tcfg, device="cpu", donate=False,
                                   optimizer=optim.sgd(1.0, momentum=0.0))
     state = tr.init_state(0)
     batch = next(ev_trainer.dvs_batches(0, 4, tcfg, device="cpu"))
