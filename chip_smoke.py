@@ -7,7 +7,11 @@ Phases, in order; any failure exits non-zero:
 1. Environment: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions.
 2. Build: every kernel under ``src/repro_torch/kernels/csrc`` with nvcc,
-   one process per source, all started together.
+   one process per source, all started together.  Then
+   ``python -m repro_torch.analysis`` in a process of its own: the lint of
+   ``src/repro_torch`` (its graph bodies listed) and the kernels' launch
+   budgets with registers, spills and static shared memory from this
+   build's ``ptxas`` reports; any finding fails the run.
 3. Kernel against plain version: ``snn_chunk`` on the card at the
    collision network's full width (4096-512-2, 8 slots, Tc = 5, C = 4096)
    over rate-coded trains of the collision images, across neuron modes and
@@ -17,7 +21,14 @@ Phases, in order; any failure exits non-zero:
    block), times the kernel (device time) and its plain version, and computes the kernel's bound from this run's inputs.
 4. Main path: ``SNNStreamEngine`` on the card with ``backend="fused"``
    serves 32 image requests and 16 spike-train requests with ragged
-   windows, each tick a replay of one captured CUDA graph of the chunk.
+   windows, each tick a replay of one captured CUDA graph of the chunk,
+   each admission a replay of the admission graph of its (kind, T):
+   captures must equal the distinct signatures, and serving the same
+   requests again captures nothing.  Prints where the wall time goes
+   (ticks, admission with its captures, the rest) for the graph engine's
+   first and second serve and the eager engine, the enqueue time of one
+   admission replay, and runs one steady admission and its tick under
+   ``set_sync_debug_mode("error")``.
    Checks every result; checks that launches a replay x replays equals
    the dispatched ticks, one eager warm-up launch a capture, and no
    steady-state re-capture; prints ms/tick, req/s and ``tick_breakdown``
@@ -136,6 +147,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -329,6 +341,35 @@ def chunk_bound(args, events, widths):
         "l2_gather_bytes": n_events * N[0] * 4, "flops": flops}
 
 
+def phase_analysis(card):
+    """``python -m repro_torch.analysis`` in a process of its own, after
+    the build: the lint and the kernels' launch budgets, with registers,
+    spills and static shared memory from this build's ptxas reports.
+    Returns the kernel plans by name."""
+    out = ROOT / "build" / "analysis_report.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    for line in proc.stdout.splitlines():
+        print(f"analysis: {line}")
+    if proc.returncode != 0:
+        fail(f"python -m repro_torch.analysis exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    doc = json.loads(out.read_text())
+    plans = {p["kernel"]: p for p in doc["kernels"]}
+    unread = [k for k, p in plans.items() if p["registers"] is None]
+    if unread or len(doc["graph_bodies"]) != 3:
+        fail(f"analysis: no ptxas registers for {unread}, graph bodies "
+             f"{doc['graph_bodies']}")
+    print(f"analysis: {len(plans)} kernel budgets with registers and spills "
+          f"from this build, {doc['counts']['findings']} findings, "
+          f"{doc['counts']['suppressed']} suppressed | on {card}")
+    return plans
+
+
 def phase_kernel(torch, dev, params_np, card):
     """Phase 3: the kernel against its plain version at full width."""
     import numpy as np
@@ -518,12 +559,14 @@ def steady_tick(torch, eng, reqs):
     return reads, allocs
 
 
-def where_host_time_goes(name, eng, wall):
-    """Split a serving run's wall time by the engine's own spans: the
-    ticks (``host_prep`` + ``dispatch`` + ``stats_fetch``), admission
-    (``stage``: upload, rate encoding, packing into the ring), and the
-    rest (submit's checks, ``_finalize``, the scheduler, sampling)."""
-    spans = eng.trace.spans()
+def where_host_time_goes(name, eng, wall, since=0.0):
+    """Split a serving run's wall time by the engine's own spans (those
+    that start at ``since`` or later): the ticks (``host_prep`` +
+    ``dispatch`` + ``stats_fetch``), admission (``stage``: upload, rate
+    encoding, packing into the ring, as a graph replay or eagerly, and
+    the captures of admission graphs within it, ``admit_capture``), and
+    the rest (submit's checks, ``_finalize``, the scheduler, sampling)."""
+    spans = [x for x in eng.trace.spans() if x.t0 >= since]
 
     def durations(kind):
         return sorted(x.t1 - x.t0 for x in spans if x.name == kind)
@@ -532,12 +575,46 @@ def where_host_time_goes(name, eng, wall):
     ticks = sum(sum(durations(k)) for k in ("host_prep", "dispatch",
                                              "stats_fetch"))
     stage = durations("stage")
+    caps = durations("admit_capture")
     print(f"main path ({name}): wall {wall * 1e3:.1f} ms = ticks "
           f"{ticks * 1e3:.1f} ms (dispatch median "
           f"{disp[len(disp) // 2] * 1e6:.1f} us, longest "
           f"{disp[-1] * 1e3:.2f} ms) + admission {sum(stage) * 1e3:.1f} ms "
           f"({len(stage)} stagings, median {stage[len(stage) // 2] * 1e6:.0f}"
-          f" us) + the rest {(wall - ticks - sum(stage)) * 1e3:.1f} ms")
+          f" us; of it {len(caps)} admission graph captures "
+          f"{sum(caps) * 1e3:.1f} ms) + the rest "
+          f"{(wall - ticks - sum(stage)) * 1e3:.1f} ms | {len(stage) / wall:.1f}"
+          f" req/s, {wall / max(1, len(disp)) * 1e3:.3f} ms/tick")
+
+
+def steady_admission(torch, eng, reqs):
+    """Admit each of ``reqs`` into an idle graph engine whose admission
+    graph of that (kind, T) is captured, one poll each, under
+    ``set_sync_debug_mode("error")``: the admission (upload, uniforms,
+    slot index, replay) and the tick after it must not synchronise
+    implicitly or allocate on the device."""
+    for req in reqs:
+        if not eng.idle():
+            fail("steady admission: the engine is not idle")
+        eng.submit(req)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        replays, captures = eng.admit_replays, eng.admit_captures
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.poll()
+        except RuntimeError as err:
+            fail(f"steady admission synchronised implicitly: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+        if (eng.admit_replays, eng.admit_captures) != (replays + 1, captures) \
+                or allocs:
+            fail(f"steady admission: replays {replays} -> "
+                 f"{eng.admit_replays}, captures {captures} -> "
+                 f"{eng.admit_captures}, {allocs} device allocations")
+        eng.drain()
+    return len(reqs)
 
 
 def phase_main(torch, dev, params_np, card):
@@ -590,6 +667,14 @@ def phase_main(torch, dev, params_np, card):
              f"capture(s): one warm-up launch a capture expected")
     if eng.steady_state_recompiles():
         fail(f"{eng.steady_state_recompiles()} steady-state re-captures")
+    reqs = img_reqs + spike_reqs
+    sigs = {("spikes" if r.spikes is not None else "image",
+             r.num_steps or CONFIG.num_steps) for r in reqs}
+    if (eng.admit_captures != len(sigs) or set(eng._admit_graphs) != sigs
+            or eng.admit_replays != len(reqs)):
+        fail(f"admission: {eng.admit_captures} captures, "
+             f"{eng.admit_replays} replays for {len(reqs)} requests of "
+             f"{len(sigs)} (kind, T) signatures")
     launches = eager + per * eng.graph_replays
     for r, req in zip(results, img_reqs + spike_reqs):
         T = req.num_steps or CONFIG.num_steps
@@ -610,7 +695,22 @@ def phase_main(torch, dev, params_np, card):
           f"| {events / wall:.0f} events/s | "
           f"{wall / eng.dispatched_ticks * 1e3:.3f} ms/tick | on {card}")
     print(f"main path (graph): tick_breakdown {json.dumps(tb)}")
+    print(f"main path (graph): admission through {eng.admit_replays} graph "
+          f"replays of {eng.admit_captures} captures, one per (kind, T) "
+          f"signature ({len(sigs)}) | on {card}")
     where_host_time_goes("graph", eng, wall)
+    # the same requests again on the same engine: every signature is
+    # captured, so admission is replays only
+    t_again = time.perf_counter()
+    again, wall2, _ = serve(eng)
+    if eng.admit_captures != len(sigs) or eng.steady_state_recompiles():
+        fail(f"admission re-captured on a second serve: "
+             f"{eng.admit_captures} captures for {len(sigs)} signatures, "
+             f"{eng.steady_state_recompiles()} re-captures")
+    if eng.admit_replays != 2 * len(reqs):
+        fail(f"admission: {eng.admit_replays} replays over two serves of "
+             f"{len(reqs)}")
+    where_host_time_goes("graph, captured", eng, wall2, since=t_again)
 
     base = engine("fused", cuda_graph=False)
     base_results, base_wall, base_launches = serve(base)
@@ -623,14 +723,22 @@ def phase_main(torch, dev, params_np, card):
           f"{base_wall / base.dispatched_ticks * 1e3:.3f} ms/tick | on {card}")
     print(f"main path (eager): tick_breakdown "
           f"{json.dumps(base.tick_breakdown())}")
+    if base.admit_captures or base.admit_replays:
+        fail("the eager engine admitted through graphs")
     where_host_time_goes("eager", base, base_wall)
-    spread = {"graph": [], "eager": []}
+    spread = {"graph": [], "graph, captured": [], "eager": []}
     for name in ("eager", "graph", "graph", "eager", "eager", "graph"):
         e = engine("fused", cuda_graph=name == "graph")
         w = serve(e)[1]
         spread[name].append(round(w / e.dispatched_ticks * 1e3, 3))
-    print(f"main path: ms/tick, three more runs each, in turns: "
-          f"{json.dumps(spread)} | on {card}")
+        if name == "graph":  # the same engine again, admission captured
+            ticks = e.dispatched_ticks
+            w = serve(e)[1]
+            spread["graph, captured"].append(
+                round(w / (e.dispatched_ticks - ticks) * 1e3, 3))
+    print(f"main path: ms/tick, three more runs each, in turns (a graph "
+          f"engine's first serve captures its admission graphs, its second "
+          f"replays them): {json.dumps(spread)} | on {card}")
 
     def fields(r):  # every field but the clocks and the request id
         return (r.prediction, r.steps, r.spike_rate, r.energy_pj,
@@ -641,6 +749,10 @@ def phase_main(torch, dev, params_np, card):
         fail("the graph engine differs from the eager engine")
     print(f"main path: the graph engine equals the eager engine on all "
           f"{len(results)} requests")
+    n_img = len(img_reqs)
+    if ([fields(r) for r in again[n_img:]]
+            != [fields(r) for r in results[n_img:]]):
+        fail("the second serve differs from the first on spike requests")
     fused = [fields(r) for r in results[len(img_reqs):]]
     plain = [fields(r) for r in engine("fused_ref").run(spike_reqs)]
     if fused != plain:
@@ -658,6 +770,24 @@ def phase_main(torch, dev, params_np, card):
     reads, allocs = steady_tick(torch, engine("fused"), img_reqs[:SLOTS])
     print(f"main path: one steady tick passed set_sync_debug_mode('error') "
           f"with {reads} stats read and {allocs} device allocations")
+    n = steady_admission(torch, eng, [img_reqs[0], spike_reqs[0]])
+    print(f"main path: {n} steady admissions (image, spikes), each a replay "
+          f"and its tick, passed set_sync_debug_mode('error') with 0 device "
+          f"allocations")
+    for kind, T in (("image", CONFIG.num_steps),
+                    ("spikes", spike_reqs[0].num_steps)):
+        # the engine is idle: a replay rewrites the last admitted slot,
+        # which no request holds
+        a = dispatch_attribution(eng._admit_graphs[(kind, T)]["graph"].replay,
+                                 device=dev, iters=21)
+        print(f"dispatch_attribution[admission replay, {kind}, T = {T}]: "
+              f"host enqueue {a['host_enqueue_us']:.1f} us | device "
+              f"(CUDA events) {a['device_us']:.1f} us | on {card}")
+    caps = sorted(x.t1 - x.t0 for x in eng.trace.spans()
+                  if x.name == "admit_capture")
+    print(f"main path: {len(caps)} admission graph captures took "
+          f"{sum(caps) * 1e3:.1f} ms, median {caps[len(caps) // 2] * 1e3:.2f} "
+          f"ms, longest {caps[-1] * 1e3:.2f} ms | on {card}")
 
     twin_args = eng.staged_chunk_args(
         [np.asarray(r.spikes) for r in spike_reqs[:SLOTS]])
@@ -753,6 +883,9 @@ def check_graph(name, eng):
     if eng.steady_state_recompiles():
         fail(f"{name}: {eng.steady_state_recompiles()} steady-state "
              f"re-captures")
+    if eng.admit_captures < 1 or eng.admit_replays < eng.admit_captures:
+        fail(f"{name}: admission not through graphs: {eng.admit_captures} "
+             f"captures, {eng.admit_replays} replays")
     per = eng.graph_launches_per_replay
     if not eng.graphed or per != 1 or per * eng.graph_replays != (
             eng.dispatched_ticks):
@@ -1954,7 +2087,8 @@ def serve_dvs(torch, name, engine, reqs, card):
            "results": results}
     print(f"dvs[{name}]: {len(results)} requests ok in {wall:.3f} s over "
           f"{eng.dispatched_ticks} ticks = {eng.graph_replays} graph replays "
-          f"+ {eager} warm-up launch(es), steady-state re-captures "
+          f"+ {eager} warm-up launch(es), admission {eng.admit_replays} "
+          f"replays of {eng.admit_captures} capture(s), steady-state re-captures "
           f"{eng.steady_state_recompiles()} | {rec['ms_tick']:.3f} ms/tick | "
           f"{rec['req_s']:.1f} req/s | {rec['events_s']:.0f} events/s | mean "
           f"{rec['energy_nj']:.1f} nJ a request (45 nm model) | equal to the "
@@ -2253,6 +2387,7 @@ def main() -> int:
         print(f"build {name}: {rec['seconds']:.1f} s | " + " | ".join(ptxas))
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(report)} "
           f"kernel source(s)")
+    budgets = phase_analysis(card)
 
     from repro_torch.configs.collision_snn import CONFIG
 
@@ -2286,7 +2421,7 @@ def main() -> int:
     aer_cases = {name: {k: c[k] for k in ("variant", "ms", "alone_ms",
                                           "bound_ms", "library_ms")}
                  for name, c in aer.items()}
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "snn_chunk",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/snn_chunk.cu",
@@ -2317,7 +2452,13 @@ def main() -> int:
         "ms_layer1": aer["layer1"]["ms"],
         "cases": aer_cases,
         "launches_inference": events["aer_launches"],
-    }] + ops_rows(hw, ops_k)}))
+    }] + ops_rows(hw, ops_k)
+    for row in rows:
+        p = budgets[row["name"]]
+        row["budget"] = {k: p[k] for k in (
+            "registers", "spill_bytes", "smem_bytes", "static_smem_bytes",
+            "threads", "cluster", "ctas")}
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

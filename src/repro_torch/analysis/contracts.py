@@ -6,8 +6,10 @@ The port of the reference's ``repro.analysis.contracts``, with its names:
   per tracked callable against an allowlist of known capture sites, and
   process-wide.  A capture is the port's compile: the trainer's
   ``StaticStep`` captures once per batch signature (its ``_cache_size``),
-  the serving engine once at cold start and once per ring growth
-  (``graph_captures``, whose own allowlist ``_grow_ring`` extends).
+  the serving engine's chunk once at cold start and once per ring growth
+  (``graph_captures``, whose own allowlist ``_grow_ring`` extends) and
+  its admission graphs once per (kind, T) at a ring size
+  (``admit_captures``: a new signature extends the allowlist).
   Catches a shape-unstable path capturing again and again.
 - :func:`donation_report` / :func:`verify_donation` read the argnums a
   callable declares donated (``donate_argnums``: the ``StaticStep``'s
@@ -53,18 +55,24 @@ def note_capture() -> None:
 
 def _cache_size(fn: Any) -> int | None:
     """Lifetime captures of ``fn``: ``_cache_size()`` where it has one
-    (the trainer's step), else ``graph_captures`` (the serving engine)."""
+    (the trainer's step), else ``graph_captures`` (the serving engine's
+    chunk) plus ``admit_captures`` (its admission graphs)."""
     get = getattr(fn, "_cache_size", None)
     if get is not None:
         return int(get())
     n = getattr(fn, "graph_captures", None)
-    return None if n is None else int(n)
+    if n is None:
+        return None
+    return int(n) + int(getattr(fn, "admit_captures", 0))
 
 
 def _own_allowance(fn: Any) -> int:
-    """Capture sites ``fn`` allowlists itself, lifetime (the engine's
-    cold start and ring growths); 0 for a callable without any."""
-    return int(getattr(fn, "_captures_expected", 0))
+    """Capture sites ``fn`` allowlists itself, lifetime: the engine's
+    chunk at cold start and at each ring growth, and each admission
+    signature, (kind, T) at a ring size, once; 0 for a callable without
+    any."""
+    return int(getattr(fn, "_captures_expected", 0)) + int(
+        getattr(fn, "_admit_captures_expected", 0))
 
 
 @dataclasses.dataclass

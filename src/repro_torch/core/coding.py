@@ -3,6 +3,9 @@
   - ``rate_encode``  : Bernoulli rate coding, intensity == per-step spike
     probability (the paper's choice; Fig. 2).  Draws from a
     ``torch.Generator``, so it does not reproduce the reference's bits.
+    It is ``rate_code(x, rate_uniforms(generator, ...))``: the draw, then
+    a draw-free comparison, which a CUDA graph can capture over uniforms
+    drawn outside it (the serving engine's graphed admission).
   - ``rate_encode_deterministic`` : round(p*T) evenly spaced spikes.
   - ``ttfs_encode``  : time-to-first-spike, brighter pixels fire earlier.
   - ``delta_encode`` : delta modulation over an input sequence, spikes on
@@ -14,7 +17,33 @@ All return a (T, *x.shape) float32 tensor with time leading, in {0,1}
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+
+def rate_uniforms(
+    generator: torch.Generator,
+    shape,
+    device=None,
+    *,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The draw of ``rate_encode``: float32 uniforms in [0, 1) of
+    ``shape`` from ``generator``, into ``out`` when given (its shape and
+    device), with the same values as a fresh ``torch.rand``."""
+    if out is None:
+        return torch.rand(
+            tuple(shape), generator=generator, dtype=torch.float32,
+            device=device,
+        )
+    return out.uniform_(0.0, 1.0, generator=generator)
+
+
+def rate_code(x: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """The draw-free half of ``rate_encode``: a spike wherever the
+    uniform lies below the clamped intensity, (T, *x.shape) float32."""
+    return (uniforms < torch.clamp(x, 0.0, 1.0)).to(torch.float32)
 
 
 def rate_encode(
@@ -22,14 +51,8 @@ def rate_encode(
 ) -> torch.Tensor:
     """Bernoulli rate coding.  ``x`` must be normalized to [0, 1]; the
     generator must live on ``x``'s device."""
-    p = torch.clamp(x, 0.0, 1.0)
-    u = torch.rand(
-        (num_steps,) + tuple(x.shape),
-        generator=generator,
-        dtype=torch.float32,
-        device=x.device,
-    )
-    return (u < p).to(torch.float32)
+    u = rate_uniforms(generator, (num_steps,) + tuple(x.shape), x.device)
+    return rate_code(x, u)
 
 
 def rate_encode_deterministic(x: torch.Tensor, num_steps: int) -> torch.Tensor:

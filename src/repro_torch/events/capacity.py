@@ -179,7 +179,7 @@ def truncation_report(
     pred_full = snn.predict_from_traces(full_m, full_s)
     pred_trunc = snn.predict_from_traces(trunc_m, trunc_s)
     # everything the report reads, off the device in one transfer
-    f64 = torch.float64
+    f64 = torch.float64  # repro-lint: disable=RL106 -- report totals for the host, read once; no kernel sees them
     host = torch.stack([
         (pred_full == pred_trunc).to(f64).mean(),
         (trunc_m - full_m).abs().max().to(f64),

@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` exports a plain C launcher and compiles into its
 own shared library under ``build/kernels/`` at the repository root, named
-by a hash of the source so an edited kernel is never served stale.  The
-build runs at first use, on the machine with the card; importing this
-module compiles nothing.
+by a hash of the source so an edited kernel is never served stale.
+``ptxas``'s report of the build (``-Xptxas=-v``: registers, spills and
+static shared memory of each entry function) is kept beside the library
+under the same name with a ``.ptxas.txt`` suffix, where
+``analysis.kernel_budget`` reads it.  The build runs at first use, on the
+machine with the card; importing this module compiles nothing.
 """
 
 from __future__ import annotations
@@ -69,11 +72,16 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def ptxas_log_path(name: str) -> Path:
+    """Where the ``ptxas`` report of ``name``'s library is kept."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
 def _start(name: str):
     """Start ``nvcc`` for one source; returns (popen, tmp, out) or None
-    when the library is already built."""
+    when the library and its ``ptxas`` report are already built."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and ptxas_log_path(name).exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -89,6 +97,10 @@ def _finish(name: str, job) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    report = ptxas_log_path(name)
+    tmp_log = report.with_suffix(f".{os.getpid()}.tmp")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, report)
     os.replace(tmp, out)
     return log
 

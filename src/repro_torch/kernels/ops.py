@@ -16,14 +16,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels.aer_matmul import (  # noqa: F401
+from repro_torch.kernels.aer_matmul import (
     aer_spike_matmul,
     aer_spike_matmul_batched,
 )
-from repro_torch.kernels.lif_fused import lif_fused, lif_fused_from_acc  # noqa: F401
-from repro_torch.kernels.q115_matmul import q115_matmul  # noqa: F401
-from repro_torch.kernels.snn_chunk import snn_chunk  # noqa: F401
+from repro_torch.kernels.lif_fused import lif_fused, lif_fused_from_acc
+from repro_torch.kernels.q115_matmul import q115_matmul
+from repro_torch.kernels.snn_chunk import snn_chunk
 from repro_torch.kernels.spike_matmul import spike_matmul
+
+__all__ = [
+    "aer_spike_matmul",
+    "aer_spike_matmul_batched",
+    "lif_fused",
+    "lif_fused_from_acc",
+    "q115_matmul",
+    "snn_chunk",
+    "snn_layer_forward",
+    "spike_matmul",
+]
 
 Tensor = torch.Tensor
 

@@ -3,10 +3,15 @@
 CPU path of every wrapper runs it, and the card's tests hold each kernel
 against it."""
 
-from repro_torch.kernels.aer_matmul import aer_spike_matmul_ref  # noqa: F401
-from repro_torch.kernels.lif_fused import lif_fused_ref  # noqa: F401
-from repro_torch.kernels.q115_matmul import (  # noqa: F401
-    q115_matmul_acc_ref,
-    q115_matmul_ref,
-)
-from repro_torch.kernels.spike_matmul import spike_matmul_ref  # noqa: F401
+from repro_torch.kernels.aer_matmul import aer_spike_matmul_ref
+from repro_torch.kernels.lif_fused import lif_fused_ref
+from repro_torch.kernels.q115_matmul import q115_matmul_acc_ref, q115_matmul_ref
+from repro_torch.kernels.spike_matmul import spike_matmul_ref
+
+__all__ = [
+    "aer_spike_matmul_ref",
+    "lif_fused_ref",
+    "q115_matmul_acc_ref",
+    "q115_matmul_ref",
+    "spike_matmul_ref",
+]

@@ -289,8 +289,10 @@ def _serve_snn(args) -> None:
         f"p99 {en['p99']/1e3:.1f} nJ (model estimate from counted events) "
         f"| {engine.dispatched_ticks} ticks on backend {engine.backend}"
         + (f", {engine.graph_replays} graph replays, "
-           f"{engine.graph_captures} capture(s), "
-           f"{engine.steady_state_recompiles()} steady-state re-captures"
+           f"{engine.graph_captures} capture(s), admission "
+           f"{engine.admit_replays} replays of {engine.admit_captures} "
+           f"capture(s), {engine.steady_state_recompiles()} steady-state "
+           f"re-captures"
            if engine.graphed else "")
     )
     tb = engine.tick_breakdown()

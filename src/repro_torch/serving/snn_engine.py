@@ -13,7 +13,26 @@ The core of ``repro.serving.snn_engine.SNNStreamEngine``:
   the slot's pinned staging buffer: an image is rate-encoded on the
   device, and the train is packed on the device into a per-step event
   table (int16 addresses, int8 values) in the slot's ring, padded by
-  ``Tc`` steps so a chunk's slice never leaves the ring.
+  ``Tc`` steps so a chunk's slice never leaves the ring.  ``_stage``
+  writes rows ``[:T]`` of the slot and its metadata in place by index
+  ops over a device slot index, never a host one.
+- **Admission as CUDA graphs.**  The port's form of the reference's
+  jitted admission with donated ring and metadata: on the card, with the
+  tick graphed, each request kind (``spikes``, ``image``) and window ``T``
+  at the current ring size is captured once into a
+  ``torch.cuda.CUDAGraph`` of ``_stage`` over static inputs (the train,
+  or the image and its uniforms), a static slot index and the ring and
+  metadata buffers, after a warm-up on copies on a side stream, in a
+  memory pool of its own (admission and tick graphs replay in no fixed
+  order).  An admission copies the upload into the static input, draws
+  an image's uniforms from the engine's generator outside the graph
+  (so the trains equal the eager engine's bit for bit), sets the slot
+  index by a device-to-device copy and replays.  ``_grow_ring`` drops the
+  admission graphs; each capture of a new (kind, T, ring size) is an
+  allowlisted site, any other counts in ``engine.tick.recompiles``.  A
+  failed capture or replay raises; the eager staging never runs in its
+  place.  ``cuda_graph=False``, the CPU and the plain backends run the
+  same ``_stage`` uncaptured over the same buffers.
 - **Static buffers.**  Every input and output of the chunk (per-layer
   membrane and refractory state, the scheduling metadata ``done`` /
   ``total`` / ``admit`` / ``fault``, the rings and the stats vector) is
@@ -349,6 +368,11 @@ class SNNStreamEngine:
         # it (a new ring is new graph inputs)
         self._captures_expected = 1
         self._captures_accounted = 0
+        self.admit_captures = 0  # lifetime admission graph captures
+        self.admit_replays = 0  # lifetime admission graph replays
+        # the admission graphs' allowlist: one capture per (kind, T, ring
+        # steps) ever seen; a second capture of one is a re-capture
+        self._admit_signatures: set = set()
         self.dispatched_ticks = 0  # lifetime chunk dispatches
         self._alloc_buffers()
         self._reset_host()
@@ -499,9 +523,10 @@ class SNNStreamEngine:
             hint = "no action needed"
         if recompiles > 0:
             hint += (
-                "; WARNING: steady-state chunk re-captures observed "
-                f"({recompiles}) — a dispatch path is not static (every "
-                "capture stalls serving for a device sync)"
+                "; WARNING: steady-state graph re-captures observed "
+                f"({recompiles}, chunk or admission) — a dispatch path is "
+                "not static (every capture stalls serving for a device "
+                "sync)"
             )
         park_rate = self.timeseries.rate("engine.preempt.parked", 10.0)
         done_rate = self.timeseries.rate("engine.requests.completed", 10.0)
@@ -568,6 +593,9 @@ class SNNStreamEngine:
         ]
         self._host_next = 0
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        # (kind, T) -> the admission graph at this ring size and its
+        # static inputs (``_capture_admit``)
+        self._admit_graphs: Dict[Tuple[str, int], Dict] = {}
 
     def _reset_host(self) -> None:
         """Reset the host-side serving state: slot bookkeeping, the
@@ -676,6 +704,9 @@ class SNNStreamEngine:
         for k, buf in self._ring.items():
             buf[:, :r_old] = old[k]
         self._alloc_staging()
+        # the admission graphs write the old ring: each (kind, T) captures
+        # again over the new one, a new allowlisted signature
+        self._admit_graphs.clear()
         if self.graphed:
             self._graph = None
             self._captures_expected += 1
@@ -757,19 +788,24 @@ class SNNStreamEngine:
         self.timeseries.sample()
         return rid
 
-    def _upload(self, s: int, arr: np.ndarray) -> torch.Tensor:
-        """One host->device copy of a float32 array.  On the card it goes
-        through slot ``s``'s pinned staging buffer, so it does not wait
-        for chunks in flight; the buffer is refilled only after its
-        previous copy's event."""
+    def _upload(
+        self, s: int, arr: np.ndarray, out: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """One host->device copy of a float32 array, into ``out`` when
+        given (an admission graph's static input), else a new tensor.  On
+        the card it goes through slot ``s``'s pinned staging buffer, so it
+        does not wait for chunks in flight; the buffer is refilled only
+        after its previous copy's event."""
         a = np.asarray(arr, dtype=np.float32)
         if self.device.type != "cuda":
-            return torch.from_numpy(a.copy())
+            src = torch.from_numpy(a.copy())
+            return src if out is None else out.copy_(src)
         ready = self._pinned_ready[s]
         ready.synchronize()  # the previous copy out of this buffer is done
         host = self._pinned[s].view(torch.float32)[: a.size].view(a.shape)
         host.numpy()[...] = a
-        out = torch.empty(a.shape, dtype=torch.float32, device=self.device)
+        if out is None:
+            out = torch.empty(a.shape, dtype=torch.float32, device=self.device)
         out.copy_(host, non_blocking=True)
         ready.record()
         return out
@@ -786,11 +822,18 @@ class SNNStreamEngine:
         if T > self._ring_steps:
             self._grow_ring(T)
         t_stage = time.perf_counter()
-        if req.spikes is not None:
-            train = self._upload(s, req.spikes)
+        kind = "spikes" if req.spikes is not None else "image"
+        data = req.spikes if req.spikes is not None else req.image
+        if self.graphed:
+            self._admit_graphed(s, kind, T, data)
         else:
-            train = coding.rate_encode(self._gen, self._upload(s, req.image), T)
-        self._stage(self._ring, self._meta, s, train)
+            x = self._upload(s, data)
+            u = None
+            if kind == "image":
+                u = coding.rate_uniforms(self._gen, (T,) + tuple(x.shape),
+                                         self.device)
+            self._stage(self._ring, self._meta, self._slot_ids[s:s + 1], x,
+                        uniforms=u)
         self._slot_req[s] = rid
         self._slot_done[s] = 0
         self._slot_retired[s] = 0
@@ -815,26 +858,113 @@ class SNNStreamEngine:
         self._slot_memsum[s] = 0.0
         self._slot_events[s] = 0.0
 
-    def _stage(self, ring, meta, s: int, train: torch.Tensor) -> None:
-        """Pack ``train`` (T, K) into slot ``s`` of ``ring`` and reset its
-        metadata in ``meta``, in place and without a host read."""
+    def _stage(
+        self,
+        ring,
+        meta,
+        slot: torch.Tensor,
+        x: torch.Tensor,
+        *,
+        uniforms: Optional[torch.Tensor] = None,
+    ) -> None:
+        """Pack a request into the slot at device index ``slot`` ((1,)
+        int64) of ``ring`` and reset its metadata in ``meta``, in place,
+        by index ops, without a host read: the counterpart of the
+        reference's jitted ``stage`` with its donated ring and metadata.
+        ``x`` is the (T, K) train, or with ``uniforms`` (T, K) the (K,)
+        image they rate-code (``coding.rate_code``).  Writes ring rows
+        ``[:T]`` only; the slot's later rows keep what they held.  An
+        admission graph captures this call over static inputs."""
+        train = x if uniforms is None else coding.rate_code(x, uniforms)
         T = train.shape[0]
         table = runtime.encode_step_table(
             train, self.C, addr_dtype=self._addr_dtype
         )
-        ring["addrs"][s, :T] = table.addrs
-        ring["values"][s, :T] = table.values
-        ring["counts"][s, :T] = table.counts
-        meta["done"][s] = 0
-        meta["total"][s] = T
-        meta["admit"][s] = 1
+        ring["addrs"][:, :T].index_copy_(0, slot, table.addrs[None])
+        ring["values"][:, :T].index_copy_(0, slot, table.values[None])
+        ring["counts"][:, :T].index_copy_(0, slot, table.counts[None])
+        meta["done"].index_fill_(0, slot, 0)
+        meta["total"].index_fill_(0, slot, T)
+        meta["admit"].index_fill_(0, slot, 1)
         if not self.fault_checks:
-            meta["fault"][s] = 0
+            meta["fault"].index_fill_(0, slot, 0)
             return
         # a step with more nonzero inputs than C would be truncated
         # silently by the packed table: flag it for quarantine
         over = torch.any(torch.sum(train != 0, dim=-1) > self.C)
-        meta["fault"][s] = over.to(torch.int32) * FAULT_CAPACITY_OVERFLOW
+        code = over.to(torch.int32) * FAULT_CAPACITY_OVERFLOW
+        meta["fault"].index_copy_(0, slot, code.reshape(1))
+
+    # the reference's donate_argnums of its jitted admission: the ring and
+    # the metadata are updated in place (analysis.contracts reads this)
+    _stage.donate_argnums = (0, 1)
+
+    def _admit_graphed(self, s: int, kind: str, T: int, data) -> None:
+        """Stage a request through the admission graph of ``(kind, T)``,
+        capturing it first where this ring size has none: the upload into
+        the graph's static input, an image's uniforms drawn into their
+        static buffer outside the graph (the eager engine's draw, in its
+        shape and order), the slot index set by a device-to-device copy,
+        then one replay.  A failed capture or replay raises."""
+        entry = self._admit_graphs.get((kind, T))
+        if entry is None:
+            entry = self._admit_graphs[(kind, T)] = self._capture_admit(kind, T)
+        ins = entry["inputs"]
+        self._upload(s, data, out=ins["x"])
+        if kind == "image":
+            coding.rate_uniforms(self._gen, ins["uniforms"].shape,
+                                 out=ins["uniforms"])
+        ins["slot"].copy_(self._slot_ids[s:s + 1])
+        entry["graph"].replay()
+        self.admit_replays += 1
+
+    def _capture_admit(self, kind: str, T: int) -> Dict:
+        """The admission graph of requests of ``kind`` over ``T`` steps at
+        this ring size, with its static inputs: the slot index, the (T, K)
+        train or the (K,) image and its (T, K) uniforms.  The first
+        capture of ``(kind, T)`` at a ring size is allowlisted; any other
+        counts as a re-capture."""
+        t0 = time.perf_counter()
+        dev, K = self.device, self.cfg.layer_sizes[0]
+        ins = {"slot": self._slot_ids[:1].clone()}
+        if kind == "image":
+            ins["x"] = torch.zeros((K,), dtype=torch.float32, device=dev)
+            ins["uniforms"] = torch.zeros((T, K), dtype=torch.float32,
+                                          device=dev)
+        else:
+            ins["x"] = torch.zeros((T, K), dtype=torch.float32, device=dev)
+        graph = self._capture_stage(ins)
+        self.admit_captures += 1
+        contracts.note_capture()
+        self._admit_signatures.add((kind, T, self._ring_steps))
+        self._note_captures()
+        self.trace.span("admit_capture", t0, time.perf_counter(),
+                        track="engine", args={"kind": kind, "steps": T})
+        return {"graph": graph, "inputs": ins}
+
+    def _capture_stage(self, ins: Dict[str, torch.Tensor]):
+        """Capture ``_stage`` over the static inputs ``ins`` and the live
+        ring and metadata into a CUDA graph.  A warm-up call runs first on
+        a side stream over copies of the ring and metadata, so capturing
+        writes no live slot.  The graph takes a memory pool of its own:
+        the tick graph and the admission graphs replay in no fixed
+        order."""
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._stage(
+                {k: v.clone() for k, v in self._ring.items()},
+                {k: v.clone() for k, v in self._meta.items()},
+                ins["slot"], ins["x"], uniforms=ins.get("uniforms"),
+            )
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._stage(self._ring, self._meta, ins["slot"], ins["x"],
+                        uniforms=ins.get("uniforms"))
+        return graph
 
     # --------------------------------------------------- admission plane
     def _void_result(
@@ -1050,17 +1180,25 @@ class SNNStreamEngine:
         contracts.note_capture()
         self._note_captures()
 
+    @property
+    def _admit_captures_expected(self) -> int:
+        """The admission graphs' allowlist: the (kind, T, ring size)
+        signatures captured so far, each allowed once."""
+        return len(self._admit_signatures)
+
     def _note_captures(self) -> None:
         """Fold captures beyond the allowlisted sites (cold start, ring
-        growth) into the ``engine.tick.recompiles`` counter."""
-        extra = self.graph_captures - self._captures_expected
+        growth, the first capture of each admission signature at a ring
+        size) into the ``engine.tick.recompiles`` counter."""
+        extra = max(0, self.graph_captures - self._captures_expected) + max(
+            0, self.admit_captures - self._admit_captures_expected)
         if extra > self._captures_accounted:
             self._m_recompiles.inc(extra - self._captures_accounted)
             self._captures_accounted = extra
 
     def steady_state_recompiles(self) -> int:
-        """Chunk re-captures beyond the known capture sites (lifetime);
-        nonzero means some dispatch path is not static."""
+        """Chunk and admission re-captures beyond the known capture sites
+        (lifetime); nonzero means some dispatch path is not static."""
         return int(self._m_recompiles.value)
 
     def _run_chunk(self) -> None:
@@ -1082,6 +1220,7 @@ class SNNStreamEngine:
         self.backend = "torch"
         self.graphed = False
         self._graph = None
+        self._admit_graphs.clear()
         return self._attempt
 
     def _attempt(self) -> None:
@@ -2071,7 +2210,7 @@ class SNNStreamEngine:
         }
         for s, t in enumerate(trains):
             train = torch.from_numpy(np.asarray(t, np.float32)).to(dev)
-            self._stage(ring, meta, s, train)
+            self._stage(ring, meta, self._slot_ids[s:s + 1], train)
         meta["admit"].zero_()
         return self._prepared, states, ring, meta
 

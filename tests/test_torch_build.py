@@ -40,9 +40,17 @@ def test_build_all_compiles_each_source_once(tmp_path, monkeypatch, build_dir):
     assert PTXAS in report["snn_chunk"]["log"]
     lib = _build.library_path("snn_chunk")
     assert lib.parent == build_dir and lib.read_text() == "built\n"
-    built = sorted(_build.library_path(n).name for n in _build.SIGNATURES)
+    built = sorted(
+        p.name for n in _build.SIGNATURES
+        for p in (_build.library_path(n), _build.ptxas_log_path(n)))
     assert sorted(p.name for p in build_dir.iterdir()) == built  # no temp left
+    # ptxas's report is kept beside the library, for kernel_budget
+    assert PTXAS in _build.ptxas_log_path("snn_chunk").read_text()
     assert _build.build_all()["snn_chunk"]["log"] == "cached"
+    # a library without its report builds again, so the report is there
+    _build.ptxas_log_path("lif_fused").unlink()
+    assert PTXAS in _build.build_all()["lif_fused"]["log"]
+    assert _build.ptxas_log_path("lif_fused").exists()
 
 
 def test_build_all_raises_nvcc_errors(tmp_path, monkeypatch, build_dir):

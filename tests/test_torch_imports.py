@@ -75,6 +75,8 @@ def test_scan_covers_the_event_input_baseline_and_example_modules():
 def test_scan_covers_the_contracts_and_the_graphed_trainer():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in ("analysis/__init__.py", "analysis/contracts.py",
+                "analysis/torchlint.py", "analysis/kernel_budget.py",
+                "analysis/__main__.py",
                 "train/loop.py", "sparse_train/trainer.py",
                 "sparse_train/event_layer.py", "launch/train.py"):
         assert f"src/repro_torch/{mod}" in names, mod

@@ -1190,5 +1190,156 @@ def test_engine_ring_growth_is_within_the_capture_contract_on_card(cuda_device):
         long = _serving_trains([40], seed=2)[0]
         eng.submit(StreamRequest(spikes=long, num_steps=40))
         eng.drain()  # grows the ring: the allowlisted re-capture
-    assert eng.graph_captures == 2 and det.cache_growth("chunk") == 2
-    assert det.backend_compiles == 2 and det.unexpected() == []
+    # the chunk: cold start and the growth; admission: (spikes, 25) and
+    # (spikes, 10) on the first ring, (spikes, 40) on the grown one
+    assert eng.graph_captures == 2 and eng.admit_captures == 3
+    assert det.cache_growth("chunk") == 5 and det.allowed("chunk") == 5
+    assert det.backend_compiles == 5 and det.unexpected() == []
+    assert eng.steady_state_recompiles() == 0
+
+
+# ---------------------------------------- admission as CUDA graphs
+def _eager_twin(eng, kind, s, data, gen_state):
+    """What the eager ``_stage`` writes for this admission, on copies of
+    the engine's ring and metadata, drawing an image's uniforms from a
+    generator at ``gen_state``."""
+    from repro_torch.core import coding
+
+    ring = {k: v.clone() for k, v in eng._ring.items()}
+    meta = {k: v.clone() for k, v in eng._meta.items()}
+    x = torch.from_numpy(np.asarray(data, np.float32)).to(eng.device)
+    u = None
+    if kind == "image":
+        g = torch.Generator(device=eng.device)
+        g.set_state(gen_state)
+        u = coding.rate_uniforms(g, (25,) + tuple(x.shape), eng.device)
+    eng._stage(ring, meta, eng._slot_ids[s:s + 1], x, uniforms=u)
+    return ring, meta
+
+
+@pytest.mark.cuda
+def test_admission_graph_replays_equal_the_eager_stage_on_card(cuda_device):
+    """One graph per (kind, T), replayed into other slots with other
+    trains and images: ring and metadata equal the eager staging bit for
+    bit, every row of every slot."""
+    eng = _serving_engine(cuda_device)
+    rng = np.random.default_rng(12)
+    trains = _serving_trains([25, 25, 10, 25], seed=12)
+    steps = [(2, "spikes", trains[0]), (5, "spikes", trains[1]),
+             (0, "spikes", trains[2]), (3, "image", rng.random(4096)),
+             (7, "image", rng.random(4096)), (6, "spikes", trains[3])]
+    for s, kind, data in steps:
+        T = data.shape[0] if kind == "spikes" else 25
+        torch.cuda.synchronize()
+        want_ring, want_meta = _eager_twin(eng, kind, s, data,
+                                           eng._gen.get_state())
+        eng._admit_graphed(s, kind, T, data)
+        torch.cuda.synchronize()
+        for k in want_ring:
+            assert torch.equal(eng._ring[k], want_ring[k]), (s, kind, k)
+        for k in want_meta:
+            assert torch.equal(eng._meta[k], want_meta[k]), (s, kind, k)
+    assert eng.admit_captures == 3  # (spikes, 25), (spikes, 10), (image, 25)
+    assert eng.admit_replays == len(steps)
+    assert sorted(eng._admit_graphs) == [("image", 25), ("spikes", 10),
+                                         ("spikes", 25)]
+    assert eng.steady_state_recompiles() == 0
+
+
+@pytest.mark.cuda
+def test_admission_graphs_capture_once_per_signature_on_card(cuda_device):
+    """Served requests capture one admission graph per (kind, T), and the
+    graph engine's results equal the eager engine's (images included:
+    their uniforms are drawn outside the graph, in the eager order)."""
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    rng = np.random.default_rng(13)
+    reqs = [StreamRequest(spikes=x, num_steps=x.shape[0])
+            for x in _serving_trains([25, 12, 25, 7, 12], seed=13)]
+    reqs += [StreamRequest(image=rng.random(4096).astype(np.float32),
+                           num_steps=T) for T in (25, 25, 9)]
+    eng = _serving_engine(cuda_device)
+    got = eng.run(reqs)
+    want = _serving_engine(cuda_device, cuda_graph=False).run(reqs)
+    assert [_fields(r) for r in got] == [_fields(r) for r in want]
+    sigs = {("spikes", 25), ("spikes", 12), ("spikes", 7), ("image", 25),
+            ("image", 9)}
+    assert eng.admit_captures == len(sigs) and set(eng._admit_graphs) == sigs
+    assert eng.admit_replays == len(reqs)
+    eng.run(reqs)  # every signature known: replays only
+    assert eng.admit_captures == len(sigs)
+    assert eng.admit_replays == 2 * len(reqs)
+    assert eng.steady_state_recompiles() == 0
+
+
+@pytest.mark.cuda
+def test_ring_growth_drops_the_admission_graphs_on_card(cuda_device):
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    eng = _serving_engine(cuda_device, slots=2)
+    eng.run([StreamRequest(spikes=x) for x in _serving_trains([25], seed=14)])
+    assert eng.admit_captures == 1 and set(eng._admit_graphs) == {
+        ("spikes", 25)}
+    long = _serving_trains([40], seed=15)[0]
+    eng.run([StreamRequest(spikes=long, num_steps=40)])
+    assert set(eng._admit_graphs) == {("spikes", 40)}  # the old ones dropped
+    got = eng.run([StreamRequest(spikes=x)
+                   for x in _serving_trains([25, 25], seed=16)])
+    assert eng.admit_captures == 3  # (spikes, 25) once more, on the new ring
+    assert eng.steady_state_recompiles() == 0
+    want = _serving_engine(cuda_device, slots=2, cuda_graph=False)
+    want.run([StreamRequest(spikes=long, num_steps=40)])
+    assert [_fields(r) for r in got] == [_fields(r) for r in want.run(
+        [StreamRequest(spikes=x) for x in _serving_trains([25, 25], seed=16)])]
+
+
+@pytest.mark.cuda
+def test_steady_admission_passes_sync_debug_mode_on_card(cuda_device):
+    """An admission through a captured graph (upload, uniforms, slot
+    index, replay) and the tick after it: no implicit synchronisation and
+    no device allocation."""
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    eng = _serving_engine(cuda_device, slots=2)
+    img = np.full(4096, 0.2, np.float32)
+    warm = [StreamRequest(spikes=x) for x in _serving_trains([25], seed=17)]
+    eng.run(warm + [StreamRequest(image=img)])
+    for req in (StreamRequest(spikes=_serving_trains([25], seed=18)[0]),
+                StreamRequest(image=img)):
+        eng.submit(req)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        replays = eng.admit_replays
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            assert eng.poll() == []  # admitted by a replay, chunk 1 replayed
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert eng.admit_replays == replays + 1
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] == allocs
+        assert len(eng.drain()) == 1
+    assert eng.admit_captures == 2 and eng.steady_state_recompiles() == 0
+
+
+@pytest.mark.cuda
+def test_failed_admission_capture_raises_on_card(cuda_device, monkeypatch):
+    """A staging that cannot be captured (here: one that reads the card
+    from the host) makes the admission raise; nothing stages eagerly in
+    its place."""
+    from repro_torch.serving.snn_engine import StreamRequest
+
+    eng = _serving_engine(cuda_device, slots=2)
+    real = eng._stage
+
+    def reading_stage(ring, meta, slot, x, **kw):
+        real(ring, meta, slot, x, **kw)
+        meta["total"].sum().item()  # a host read: illegal while capturing
+
+    monkeypatch.setattr(eng, "_stage", reading_stage)
+    eng.submit(StreamRequest(spikes=_serving_trains([25], seed=19)[0]))
+    with pytest.raises(RuntimeError):
+        eng.poll()
+    torch.cuda.synchronize()
+    assert eng.admit_captures == eng.admit_replays == 0
+    assert not eng._admit_graphs
+    assert not eng._meta["total"].any() and not eng._ring["counts"].any()
