@@ -134,7 +134,32 @@ Phases, in order; any failure exits non-zero:
    on 64 collision images on the card with TF32 off, within 1e-4 of the
    CPU; one training step's loss finite; ``energy_reduction`` of the
    measured DVS events against the BCNN baselines (a 45 nm model).
-11. Prints the kernel table as one JSON line (the aer row also carries
+11. The LM zoo's serving path (``ServeEngine`` on ``repro_torch.models``;
+   none of the six kernels runs on it, and their launch counts must stay
+   0): ``stablelm-1.6b`` at full width (24 layers, d_model 2048, vocab
+   100,352; 1,644,515,328 float32 params drawn on the card from a seed),
+   bfloat16 compute, ``ServeEngine(batch_size=4, cache_len=128)`` on 8
+   requests of 4-23 tokens x 16 new tokens, greedy: prefill ms, ms a
+   decode step (CUDA events: median and spread), tokens/s, device
+   operations a decode step and the card's busy share over two traced
+   steps (``torch.profiler``), a greedy step under
+   ``set_sync_debug_mode("error")``, peak device memory.  The gate: the
+   same params and requests served in float32 compute with TF32 off, and
+   the teacher-forced forward over each batch's right-padded prompts and
+   generated tokens; its argmax at every generated position must be the
+   generated token (positions with a top-2 gap under 1e-3 skipped and
+   counted); the largest prefill/decode logit difference from the
+   forward is printed, not gated.  Then the same check at full width,
+   float32, 2 requests x 4 tokens, for one arch of each other family:
+   ``granite-moe-1b-a400m`` (no drops), ``mamba2-130m``,
+   ``recurrentgemma-2b``, ``minicpm3-4b``, ``phi-3-vision-4.2b`` (576
+   image embeddings a request) and ``musicgen-medium`` (4 codebooks);
+   ``mixtral-8x7b`` and ``yi-34b`` (187 and 138 GB of float32 params) and
+   ``codeqwen1.5-7b`` (dense, as stablelm) run reduced only.  Then all
+   ten archs at ``reduced()``: prefill + decode within 5e-4 of the
+   forward, and ``python -m repro_torch.launch.serve``'s LM mode in
+   process (``--temperature 0.8 --quant q115`` on stablelm).
+12. Prints the kernel table as one JSON line (the aer row also carries
    the sparse and layer-1 times, every phase-5 case, phase 6's graph
    counts and the inference launches of phase 10; the snn_chunk row phase 10's DVS and tuned-C
    cases; the lif row its second form and floor; the q115 row each shape
@@ -2352,6 +2377,311 @@ def phase_events(torch, dev, params_np, card, main_run):
                        for k, v in served.items()}}
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the LM zoo's serving path
+# --------------------------------------------------------------------------
+LM_ARCH, LM_REQUESTS, LM_BATCH, LM_CACHE, LM_NEW = (
+    "stablelm-1.6b", 8, 4, 128, 16)
+# one full-width run for each other family whose float32 params fit the card
+LM_FAMILIES = ("granite-moe-1b-a400m", "mamba2-130m", "recurrentgemma-2b",
+               "minicpm3-4b", "phi-3-vision-4.2b", "musicgen-medium")
+LM_GAP = 1e-3  # a generated position whose top-2 gap is smaller is skipped
+
+
+def lm_requests(cfg, n, new_tokens, seed):
+    """The launcher's requests (greedy): ``launch.serve.lm_requests``."""
+    from repro_torch.launch.serve import lm_requests as make
+
+    return make(cfg, n, new_tokens, seed=seed)
+
+
+def lm_check(torch, dev, model, params, reqs, outs, B, cache_len):
+    """The greedy check of one served run.  For each engine batch: the
+    teacher-forced forward over the right-padded prompts (as the engine
+    pads them) followed by the generated tokens; its argmax at each
+    generated position must equal the token the engine generated there,
+    but where the forward's top-2 gap is under ``LM_GAP``.  Also prefill
+    and decode fed the same tokens: their largest logit difference from
+    the forward's (printed, not gated).  (checked, skipped, mismatches,
+    max |prefill/decode - forward|)."""
+    import numpy as np
+
+    cfg = model.cfg
+    checked = skipped = bad = 0
+    diff = 0.0
+    for s in range(0, len(reqs), B):
+        chunk, gen = reqs[s: s + B], np.stack(outs[s: s + B])
+        Lmax = max(len(r.prompt) for r in chunk)
+        new = gen.shape[1]
+        pad = [np.pad(r.prompt, [(0, Lmax - len(r.prompt))]
+                      + [(0, 0)] * (r.prompt.ndim - 1)) for r in chunk]
+        tokens = torch.as_tensor(np.concatenate([np.stack(pad), gen], 1)
+                                 ).to(dev)
+        batch = {"tokens": tokens}
+        if cfg.num_image_tokens:
+            batch["img_embeds"] = torch.as_tensor(
+                np.stack([r.img_embeds for r in chunk])).to(dev)
+        with torch.no_grad():
+            fwd = model.forward_logits(params, batch).float()
+            pred = fwd[:, Lmax - 1: Lmax - 1 + new]  # predicts gen[:, j]
+            top2 = torch.topk(pred, 2, dim=-1).values
+            sure = (top2[..., 0] - top2[..., 1]) >= LM_GAP
+            hit = pred.argmax(-1) == torch.as_tensor(gen).to(dev)
+            checked += int(sure.sum())
+            skipped += int((~sure).sum())
+            bad += int((sure & ~hit).sum())
+            pre = dict(batch, tokens=tokens[:, :Lmax])
+            logits, cache = model.prefill(params, pre, cache_len)
+            diff = max(diff, float((logits - pred[:, 0]).abs().max()))
+            pos = torch.full((len(chunk),), Lmax + cfg.num_image_tokens,
+                             device=dev)
+            for j in range(new - 1):
+                logits, cache = model.decode_step(
+                    params, tokens[:, Lmax + j: Lmax + j + 1], pos + j, cache)
+                diff = max(diff, float((logits - pred[:, j + 1]).abs().max()))
+    return checked, skipped, bad, diff
+
+
+def lm_serve_checked(torch, dev, arch, cfg, params, reqs, B, cache_len,
+                     card):
+    """Serve ``reqs`` greedy, then ``lm_check``: fails on any mismatch."""
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServeEngine
+
+    model = Model(cfg)
+    eng = ServeEngine(model, params, batch_size=B, cache_len=cache_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = sum(len(o) for o in outs)
+    checked, skipped, bad, diff = lm_check(torch, dev, model, params, reqs,
+                                           outs, B, cache_len)
+    print(f"lm[{arch}]: {cfg.dtype} compute, {len(reqs)} requests x "
+          f"{reqs[0].max_new_tokens} new tokens in {wall * 1e3:.1f} ms "
+          f"({n / wall:.1f} tok/s) | greedy check: {checked} positions, "
+          f"{bad} mismatches, {skipped} skipped (top-2 gap < {LM_GAP}) | "
+          f"max |prefill/decode - forward| logits {diff:.3e} (ungated) | "
+          f"on {card}")
+    if bad or not checked:
+        fail(f"lm[{arch}]: {bad} of {checked} generated tokens are not the "
+             f"teacher-forced forward's argmax")
+    return outs
+
+
+def lm_full_width(torch, dev, card):
+    """stablelm-1.6b at full width in its own dtypes (float32 params,
+    bfloat16 compute): the served run's numbers, then the float32 gate."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import aer_matmul, lif_fused, q115_matmul
+    from repro_torch.kernels import snn_chunk, spike_matmul
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServeEngine
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get(LM_ARCH)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, dev)
+    torch.cuda.synchronize()
+    n_params = model.param_count()
+    print(f"lm[{LM_ARCH}]: full width {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}: {n_params:,} params, "
+          f"{n_params * 4 / 1e9:.2f} GB float32, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    reqs = lm_requests(cfg, LM_REQUESTS, LM_NEW, SEED)
+    eng = ServeEngine(model, params, batch_size=LM_BATCH, cache_len=LM_CACHE)
+    eng.generate(lm_requests(cfg, LM_BATCH, 2, SEED + 1))  # warm-up
+    counted = (snn_chunk.snn_chunk, aer_matmul.aer_spike_matmul_batched,
+               aer_matmul.aer_spike_matmul, lif_fused.lif_fused,
+               spike_matmul.spike_matmul, q115_matmul.q115_matmul)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {fn.__name__: fn.launches for fn in counted if fn.launches}
+    if launched:
+        fail(f"lm[{LM_ARCH}]: the LM path launched {launched}")
+    n_tok = sum(len(o) for o in outs)
+    if [len(o) for o in outs] != [LM_NEW] * LM_REQUESTS:
+        fail(f"lm[{LM_ARCH}]: generated lengths {[len(o) for o in outs]}")
+    if not all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs):
+        fail(f"lm[{LM_ARCH}]: a generated token outside the vocab")
+
+    # prefill and decode steps of the first batch, by CUDA events
+    first = reqs[:LM_BATCH]
+    Lmax = max(len(r.prompt) for r in first)
+    import numpy as np
+
+    tokens = torch.as_tensor(np.stack([np.pad(r.prompt, (0, Lmax - len(r.prompt)))
+                                       for r in first])).to(dev)
+    with torch.no_grad():
+        prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens},
+                                                   LM_CACHE), reps=1, rounds=5)
+        logits, cache = model.prefill(params, {"tokens": tokens}, LM_CACHE)
+        tok = logits.argmax(-1)
+        pos = torch.full((LM_BATCH,), Lmax, device=dev)
+        marks = []
+        for j in range(LM_NEW - 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, cache = model.decode_step(params, tok[:, None], pos + j,
+                                              cache)
+            tok = logits.argmax(-1)
+            b.record()
+            marks.append((a, b))
+        torch.cuda.synchronize()
+        steps = [a.elapsed_time(b) for a, b in marks]
+        # one greedy step reads nothing back and allocates through the
+        # caching allocator only
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, cache = model.decode_step(params, tok[:, None],
+                                              pos + LM_NEW, cache)
+            tok = logits.argmax(-1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for j in range(2):
+                logits, cache = model.decode_step(
+                    params, tok[:, None], pos + LM_NEW + 1 + j, cache)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, ops = per_call(torch, prof, 2)
+    busy = sum(device_time_us(torch, prof).values()) / 1e3
+    print(f"lm[{LM_ARCH}]: served {LM_REQUESTS} requests (batch {LM_BATCH}, "
+          f"cache {LM_CACHE}, prompts {min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} tokens) x {LM_NEW} new "
+          f"tokens, greedy, bfloat16 compute: {wall * 1e3:.1f} ms, "
+          f"{n_tok / wall:.1f} tok/s | on {card}")
+    print(f"lm[{LM_ARCH}]: prefill {prefill_ms:.3f} ms (batch {LM_BATCH} x "
+          f"{Lmax} tokens) | decode step median {statistics.median(steps):.3f}"
+          f" ms, spread {min(steps):.3f}-{max(steps):.3f} over {len(steps)} "
+          f"steps (CUDA events) | on {card}")
+    if dev_ms is None:
+        print(f"lm[{LM_ARCH}]: the profiler recorded no device time: device "
+              f"operations and busy share not measured")
+    else:
+        print(f"lm[{LM_ARCH}]: a decode step runs {ops} device operations, "
+              f"{dev_ms:.3f} ms of device time; busy {busy:.3f} of "
+              f"{traced_ms:.3f} traced ms over 2 steps ({busy / traced_ms:.1%}) "
+              f"| no host sync in a greedy step (sync debug mode) | "
+              f"the six SNN kernels launched 0 times | on {card}")
+
+    # the gate: the same params in float32 compute.  TF32 stays off (main
+    # sets it so) for every float32 result this phase gates
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("lm: TF32 is on; the float32 greedy check needs it off")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    lm_serve_checked(torch, dev, LM_ARCH, cfg32, params, reqs, LM_BATCH,
+                     LM_CACHE, card)
+    print(f"lm[{LM_ARCH}]: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | on {card}")
+
+
+def phase_lm(torch, dev, card):
+    """Phase 11: the LM zoo's serving path (``ServeEngine`` on ``Model``)."""
+    import dataclasses
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_full_width(torch, dev, card)
+    torch.cuda.empty_cache()
+
+    # the other families at full width, float32 compute, 2 requests x 4
+    for arch in LM_FAMILIES:
+        cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+        note = ""
+        if cfg.num_experts:
+            # a forward and a decode group their tokens differently: with
+            # drops their logits differ by design, so none is dropped
+            cfg = dataclasses.replace(cfg, capacity_factor=100.0,
+                                      moe_group_size=16)
+            note = " (capacity_factor 100, moe_group_size 16: no drops)"
+        cache_len = cfg.num_image_tokens + LM_CACHE
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = Model(cfg).init(SEED, dev)
+        torch.cuda.synchronize()
+        print(f"lm[{arch}]: full width, {Model(cfg).param_count():,} params "
+              f"drawn in {time.perf_counter() - t0:.2f} s{note}")
+        lm_serve_checked(torch, dev, arch, cfg, params,
+                         lm_requests(cfg, 2, 4, SEED), 2, cache_len, card)
+        print(f"lm[{arch}]: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del params
+        torch.cuda.empty_cache()
+    for arch in configs.ARCH_IDS:
+        if arch not in LM_FAMILIES and arch != LM_ARCH:
+            gb = Model(configs.get(arch)).param_count() * 4 / 1e9
+            why = ("its float32 params exceed the card" if gb > 60 else
+                   f"the dense family runs at full width as {LM_ARCH}")
+            print(f"lm[{arch}]: reduced only: {why} ({gb:.1f} GB float32)")
+
+    # all ten archs at reduced size: decode consistency, then the launcher
+    import numpy as np
+
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get(arch).reduced()
+        if cfg.num_experts:
+            cfg = dataclasses.replace(cfg, capacity_factor=100.0,
+                                      moe_group_size=16)
+        model = Model(cfg)
+        params = model.init(SEED, dev)
+        rng = np.random.default_rng(SEED)
+        shape = (2, 20, cfg.num_codebooks) if cfg.num_codebooks else (2, 20)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+        batch = {"tokens": toks}
+        if cfg.num_image_tokens:
+            batch["img_embeds"] = torch.as_tensor(rng.normal(
+                0, 1, (2, cfg.num_image_tokens, 1024)).astype(np.float32)
+            ).to(dev)
+        with torch.no_grad():
+            full = model.forward_logits(params, batch)
+            logits, cache = model.prefill(params, dict(batch,
+                                                       tokens=toks[:, :16]),
+                                          20 + cfg.num_image_tokens + 8)
+            errs = [float((logits - full[:, 15]).abs().max())]
+            for s in range(16, 20):
+                pos = torch.full((2,), s + cfg.num_image_tokens, device=dev)
+                logits, cache = model.decode_step(params, toks[:, s: s + 1],
+                                                  pos, cache)
+                errs.append(float((logits - full[:, s]).abs().max()))
+        if max(errs) >= 5e-4:
+            fail(f"lm reduced {arch}: prefill + decode off the forward by "
+                 f"{max(errs):.3e}")
+        argv = ["--arch", arch, "--requests", "3", "--new-tokens", "4",
+                "--batch", "2"]
+        if arch == LM_ARCH:
+            argv += ["--temperature", "0.8", "--quant", "q115"]
+        out = io.StringIO()
+        with redirect_stdout(out):
+            serve.main(argv)
+        line = out.getvalue().strip()
+        if f"{arch}: served 3 reqs / 12 tokens" not in line:
+            fail(f"lm reduced {arch}: launcher printed {line!r}")
+        print(f"lm reduced[{arch}]: prefill + decode within "
+              f"{max(errs):.2e} of the forward (gate 5e-4) | launcher: {line}")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -2409,6 +2739,8 @@ def main() -> int:
     phase_faults(torch, dev, params_np, card)
     # 10. the event input path: DVS serving, capacity, AER-direct, BCNN
     events = phase_events(torch, dev, params_np, card, main_run)
+    # 11. the LM zoo's serving path (no kernel of the table on it)
+    phase_lm(torch, dev, card)
 
     odd = collections.Counter(x for x in RECORD_OFFSETS if x)
     print(f"profiler: {sum(odd.values())} of {len(RECORD_OFFSETS)} kernel "
@@ -2416,7 +2748,7 @@ def main() -> int:
           f"reps x launches: {dict(odd)}); their times use each kernel's mean "
           f"duration")
 
-    # 11. results
+    # 12. results
     dense = aer["layer0_dense_t0"]
     aer_cases = {name: {k: c[k] for k in ("variant", "ms", "alone_ms",
                                           "bound_ms", "library_ms")}

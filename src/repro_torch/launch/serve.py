@@ -1,4 +1,19 @@
-"""Streaming SNN serving on the card: the port's ``--snn`` launcher.
+"""Serving launcher on the card: batched LM generation (the default) or
+streaming SNN inference (``--snn``).
+
+LM zoo (prefill + step-synchronous batched decode, ``ServeEngine``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --reduced --requests 8 --new-tokens 16 [--batch 4] [--cache-len 128] \
+      [--temperature 0.8] [--quant q115] [--device cuda|cpu]
+
+The arch's config is always cut to its ``reduced()`` size (``--reduced``
+is on by default and cannot be turned off, as in the reference); weights
+are random, made from seed 0; prompts are 4-23 random tokens (and, for
+the vlm arch, random CLIP patch embeddings).  It prints one summary line.
+Like ``--snn``, it runs on the card unless ``--device cpu`` is given.
+
+SNN streaming:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --snn --requests 16 \
       --batch 8 --image-hw 64 --hidden 512 --num-steps 25 --chunk-steps 5 \
@@ -37,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.core import snn
 from repro_torch.data import collision
 from repro_torch.events import aer
@@ -156,6 +172,53 @@ def _requests(args, cfg, device):
     )
     _, _, test_x, _ = collision.generate(data_cfg)
     return [StreamRequest(image=x.reshape(-1)) for x in test_x], "rate-coded"
+
+
+def lm_requests(cfg, n: int, new_tokens: int, temperature: float = 0.0,
+                seed: int = 0):
+    """The LM mode's requests: prompts of 4-23 random tokens (codebook
+    rows for an audio arch) and, for a vlm arch, random CLIP patch
+    embeddings, from ``default_rng(seed)``."""
+    from repro_torch.models.model import CLIP_EMBED_DIM
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(n):
+        L = int(rng.integers(4, 24))
+        shape = (L, cfg.num_codebooks) if cfg.num_codebooks else (L,)
+        img = None
+        if cfg.num_image_tokens:
+            img = rng.normal(0, 1, (cfg.num_image_tokens, CLIP_EMBED_DIM)
+                             ).astype(np.float32)
+        reqs.append(Request(
+            prompt=rng.integers(0, cfg.vocab_size, shape).astype(np.int32),
+            max_new_tokens=new_tokens, temperature=temperature,
+            img_embeds=img))
+    return reqs
+
+
+def _serve_lm(args) -> None:
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServeEngine
+
+    device = resolve_device(args.device)
+    cfg = configs.get(args.arch).reduced()
+    if args.quant:
+        cfg = dataclasses.replace(cfg, quant=args.quant)
+    model = Model(cfg)
+    params = model.init(0, device)
+    engine = ServeEngine(model, params, batch_size=args.batch,
+                         cache_len=args.cache_len)
+    reqs = lm_requests(cfg, args.requests, args.new_tokens, args.temperature)
+    t0 = time.time()
+    outs = engine.generate(reqs)
+    dt = time.time() - t0
+    n = sum(len(o) for o in outs)
+    where = ("CPU" if device.type == "cpu"
+             else torch.cuda.get_device_name(device))
+    print(f"{args.arch}: served {len(reqs)} reqs / {n} tokens in {dt:.2f}s "
+          f"({n/dt:.1f} tok/s on {where}, quant={cfg.quant})")
 
 
 def _serve_snn(args) -> None:
@@ -330,11 +393,21 @@ def _serve_snn(args) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    # LM mode (the default)
+    ap.add_argument("--arch", default="stablelm-1.6b",
+                    choices=configs.ARCH_IDS)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--quant", default=None, choices=[None, "q115"])
+    # streaming SNN mode
     ap.add_argument("--snn", action="store_true",
-                    help="serve the event-driven SNN (the only mode ported)")
+                    help="serve the event-driven SNN instead of an LM")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4,
-                    help="number of slots served together")
+                    help="number of requests (LM) or slots (--snn) "
+                         "served together")
     ap.add_argument("--dvs", action="store_true",
                     help="synthetic DVS event-camera input instead of "
                          "rate-coded images")
@@ -407,9 +480,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; never falls back")
     args = ap.parse_args(argv)
-    if not args.snn:
-        ap.error("only --snn serving is ported to PyTorch so far")
-    _serve_snn(args)
+    if args.snn:
+        _serve_snn(args)
+    else:
+        _serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,164 @@
+"""Shared neural layers: norms, RoPE, MLPs, embeddings.
+
+Every init function takes an ``Init`` (the generator, device and dtype of
+one model's initialisation) and returns a dict of tensors.  Parameters
+use the reference's layouts and distributions; draws come from the
+port's own generator, so values differ from the reference's.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+class Init:
+    """Where and how a model's parameters are drawn.
+
+    On the ``meta`` device nothing is drawn: leaves carry shape and dtype
+    only (``Model.abstract``, ``param_count``).
+    """
+
+    def __init__(self, generator: Optional[torch.Generator],
+                 device: torch.device, dtype: torch.dtype = torch.float32,
+                 lead: Tuple[int, ...] = ()):
+        self.gen = generator
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.lead = tuple(lead)
+
+    def stacked(self, n: int) -> "Init":
+        """The same draws with a leading layer axis of n on every leaf."""
+        return Init(self.gen, self.device, self.dtype, (n,) + self.lead)
+
+    @property
+    def meta(self) -> bool:
+        return self.device.type == "meta"
+
+    def _empty(self, shape) -> torch.Tensor:
+        return torch.empty(self.lead + tuple(shape), dtype=torch.float32,
+                           device=self.device)
+
+    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+        """U[lo, hi) drawn in float32, then cast to the param dtype."""
+        t = self._empty(shape)
+        if not self.meta:
+            t.uniform_(lo, hi, generator=self.gen)
+        return t.to(self.dtype)
+
+    def normal(self, shape, std: float) -> torch.Tensor:
+        """N(0, 1) drawn in float32, cast to the param dtype, times std."""
+        t = self._empty(shape)
+        if not self.meta:
+            t.normal_(generator=self.gen)
+        return t.to(self.dtype) * std
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(self.lead + tuple(shape), value, dtype=self.dtype,
+                          device=self.device)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------- helpers
+def dense_init(init: Init, shape: Sequence[int], fan_in_dims: int = 1):
+    """fan-in-scaled uniform init."""
+    fan_in = math.prod(shape[:fan_in_dims])
+    scale = 1.0 / math.sqrt(fan_in)
+    return init.uniform(shape, -scale, scale)
+
+
+# ---------------------------------------------------------------- norms
+def norm_init(init: Init, d: int, kind: str):
+    p = {"scale": init.full((d,), 1.0)}
+    if kind == "layernorm":
+        p["bias"] = init.full((d,), 0.0)
+    return p
+
+
+def apply_norm(p, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    elif kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        raise ValueError(kind)
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float, rope_pct: float = 1.0,
+               device=None):
+    rot_dim = int(head_dim * rope_pct) // 2 * 2
+    exps = torch.arange(0, rot_dim, 2, dtype=torch.float32, device=device)
+    inv = 1.0 / torch.pow(theta, exps / rot_dim)  # float32, as the reference
+    return inv, rot_dim
+
+
+def apply_rope(
+    x: torch.Tensor,  # (..., L, H, D)
+    positions: torch.Tensor,  # (..., L) int
+    theta: float,
+    rope_pct: float = 1.0,
+) -> torch.Tensor:
+    """Rotary embedding on the first ``rope_pct`` of each head's dims
+    (halves rotated as a pair); the rest pass through."""
+    D = x.shape[-1]
+    inv, rot_dim = rope_freqs(D, theta, rope_pct, device=x.device)
+    if rot_dim == 0:
+        return x
+    ang = positions[..., None].float() * inv  # (..., L, rot/2)
+    cos = torch.cos(ang)[..., None, :]  # (..., L, 1, rot/2)
+    sin = torch.sin(ang)[..., None, :]
+    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = xr[..., : rot_dim // 2], xr[..., rot_dim // 2:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------- mlp
+def mlp_init(init: Init, d_model: int, d_ff: int, kind: str):
+    p = {}
+    if kind in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init(init, (d_model, d_ff))
+    p["w_up"] = dense_init(init, (d_model, d_ff))
+    p["w_down"] = dense_init(init, (d_ff, d_model))
+    return p
+
+
+def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
+    up = x @ p["w_up"].to(x.dtype)
+    if kind == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(x.dtype)) * up
+    elif kind == "geglu":
+        h = gelu(x @ p["w_gate"].to(x.dtype)) * up
+    elif kind == "gelu":
+        h = gelu(up)
+    else:
+        raise ValueError(kind)
+    return h @ p["w_down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------- embed
+def embedding_init(init: Init, vocab: int, d_model: int):
+    return {"table": init.normal((vocab, d_model), 0.02)}
+
+
+def unembed(p_head: torch.Tensor, x: torch.Tensor,
+            softcap: Optional[float]) -> torch.Tensor:
+    logits = x @ p_head.to(x.dtype)
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits.float() / softcap)
+    return logits

@@ -36,6 +36,11 @@ EXAMPLES = {
     "coding_ablation": (TRAIN, [
         "encoder              | test_acc", "rate (paper)",
         "rate_deterministic", "ttfs"]),
+    "serve_quantized_lm": (
+        ["--requests", "3", "--new-tokens", "4", "--batch", "2", "--q115"],
+        ["arch=stablelm-1.6b (reduced) params=", "quant=q115",
+         "served 3 requests, 12 new tokens in", "tok/s (CPU)",
+         "  req0: prompt_len=", "Q1.15 mode: weights snapped"]),
 }
 RUN = """
 import sys

@@ -80,3 +80,17 @@ def test_scan_covers_the_contracts_and_the_graphed_trainer():
                 "train/loop.py", "sparse_train/trainer.py",
                 "sparse_train/event_layer.py", "launch/train.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_scan_covers_the_lm_zoo_serving_path():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    archs = ("mixtral_8x7b", "granite_moe_1b_a400m", "mamba2_130m",
+             "stablelm_1_6b", "codeqwen1_5_7b", "yi_34b", "minicpm3_4b",
+             "recurrentgemma_2b", "phi_3_vision_4_2b", "musicgen_medium")
+    for mod in (("models/__init__.py", "models/config.py", "models/layers.py",
+                 "models/attention.py", "models/moe.py", "models/ssm.py",
+                 "models/griffin.py", "models/transformer.py",
+                 "models/model.py", "serving/engine.py",
+                 "configs/__init__.py", "examples/serve_quantized_lm.py")
+                + tuple(f"configs/{a}.py" for a in archs)):
+        assert f"src/repro_torch/{mod}" in names, mod
