@@ -159,7 +159,30 @@ Phases, in order; any failure exits non-zero:
    ten archs at ``reduced()``: prefill + decode within 5e-4 of the
    forward, and ``python -m repro_torch.launch.serve``'s LM mode in
    process (``--temperature 0.8 --quant q115`` on stablelm).
-12. Prints the kernel table as one JSON line (the aer row also carries
+12. The LM zoo's training path (``Model.loss`` under the launcher's
+   ``Trainer``; none of the six kernels runs on it, and their launch
+   counts must stay 0). (a) ``stablelm-1.6b`` at full width and depth,
+   float32 params, bfloat16 compute, ``remat="full"``, batch 4 x 128
+   tokens of the launcher's Markov batches, the launcher's AdamW chain,
+   ``Trainer(jit=True, donate=True)``: 12 steps, 1 capture and 12 replays
+   gated, every loss finite, peak allocated memory under the card's;
+   prints ms a step (CUDA events: median and spread), tokens/s, the first
+   step's time (warm-up and capture), device time and device operations a
+   step and the busy share over 2 traced steps (``torch.profiler``; the
+   matmul kernels' part by name), peak allocated and reserved memory, the
+   first and last loss; then the optimizer's leaf-by-leaf step alone
+   (CUDA events) and the same training step with ``remat="none"`` (what
+   the recompute costs). (c) One eager full-width step (``jit=False``)
+   under ``set_sync_debug_mode("error")``. (b) Graphed equals eager bit
+   for bit: 3 steps each from the same params and batches, params, Adam
+   state and losses, for stablelm and one arch of each other family
+   (phase 11's), each at full width with its depth cut to one repeat of
+   its layer group, float32 compute, TF32 off, and stablelm again under
+   the launcher's ``--quant q115`` (fake quantization in the step). (d)
+   ``python -m repro_torch.launch.train --arch stablelm-1.6b --reduced
+   --steps 3`` in a process: ``final:`` and ``captures 1, graph replays
+   3``.
+13. Prints the kernel table as one JSON line (the aer row also carries
    the sparse and layer-1 times, every phase-5 case, phase 6's graph
    counts and the inference launches of phase 10; the snn_chunk row phase 10's DVS and tuned-C
    cases; the lif row its second form and floor; the q115 row each shape
@@ -171,7 +194,9 @@ There is no CPU fallback: without a CUDA device the script exits 2.
 from __future__ import annotations
 
 import collections
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2682,6 +2707,303 @@ def phase_lm(torch, dev, card):
               f"{max(errs):.2e} of the forward (gate 5e-4) | launcher: {line}")
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the LM zoo's training path
+# --------------------------------------------------------------------------
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS, LM_TRAIN_CHECK = 4, 128, 12, 3
+# device kernels that are matrix products (cuBLAS, CUTLASS), by name
+LM_MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+
+
+def lm_kernels():
+    """The six kernels of the table: the LM path launches none of them."""
+    from repro_torch.kernels import aer_matmul, lif_fused, q115_matmul
+    from repro_torch.kernels import snn_chunk, spike_matmul
+
+    return (snn_chunk.snn_chunk, aer_matmul.aer_spike_matmul_batched,
+            aer_matmul.aer_spike_matmul, lif_fused.lif_fused,
+            spike_matmul.spike_matmul, q115_matmul.q115_matmul)
+
+
+def lm_trainer(cfg, dev, jit=True):
+    """The launcher's trainer: ``Trainer(Model(cfg), lm_optimizer)`` with
+    its defaults (``jit=True, donate=True``) unless ``jit=False``."""
+    from repro_torch.launch.train import lm_optimizer
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import Trainer
+
+    return Trainer(Model(cfg, dev), lm_optimizer(3e-4, LM_TRAIN_STEPS),
+                   jit=jit)
+
+
+def lm_batches(cfg, dev):
+    from repro_torch.launch.train import batches
+
+    return batches(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev)
+
+
+def lm_train_full_width(torch, dev, card):
+    """(a) stablelm-1.6b at full width and depth in its own dtypes, the
+    launcher's trainer and batches, each step a graph replay; then (c)
+    one eager step under sync-debug mode."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.optim.adam import update_into
+    from repro_torch.train.loop import StaticStep
+    from repro_torch.tree import tree_leaves
+
+    cfg = configs.get(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    tr = lm_trainer(cfg, dev)
+    if not isinstance(tr.step_fn, StaticStep) or not tr.step_fn.donate:
+        fail("the LM trainer's default step is not the donated static step")
+    t0 = time.perf_counter()
+    state = tr.init_state(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tr.model.param_count()
+    batches = lm_batches(cfg, dev)
+    pre = [next(batches) for _ in range(LM_TRAIN_STEPS + 3)]
+    torch.cuda.synchronize()
+
+    # the main path: counts from 0, read right after
+    counted = lm_kernels()
+    for fn in counted:
+        fn.launches = 0
+    losses, marks = [], []
+    t0 = time.perf_counter()
+    state, m = tr.step_fn(state, pre[0])  # warm-up and capture, then replay
+    losses.append(m["loss"])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    for b in pre[1:LM_TRAIN_STEPS]:
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        state, m = tr.step_fn(state, b)
+        e.record()
+        marks.append((a, e))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launched = {fn.__name__: fn.launches for fn in counted if fn.launches}
+    step = tr.step_fn
+    ms = [a.elapsed_time(e) for a, e in marks]
+    losses = [float(x) for x in losses]
+    peak, reserved = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_reserved())
+    if launched:
+        fail(f"lm train: the LM path launched {launched}")
+    if step.captures != 1 or step.replays != LM_TRAIN_STEPS:
+        fail(f"lm train: {step.captures} captures, {step.replays} replays "
+             f"for {LM_TRAIN_STEPS} steps (want 1 and {LM_TRAIN_STEPS})")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"lm train: losses {losses}")
+    if peak >= total:
+        fail(f"lm train: peak {peak} B not under the card's {total} B")
+    med = statistics.median(ms)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    print(f"lm train[{LM_ARCH}]: full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}; "
+          f"{n_params:,} float32 params, {cfg.dtype} compute, remat "
+          f"{cfg.remat}), batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, "
+          f"the launcher's AdamW chain and Markov batches; params drawn in "
+          f"{init_s:.2f} s | on {card}")
+    print(f"lm train[{LM_ARCH}]: {LM_TRAIN_STEPS} steps, captures "
+          f"{step.captures}, graph replays {step.replays}; first step (warm-up "
+          f"+ capture + replay) {first_s:.2f} s | step median {med:.3f} ms, "
+          f"spread {min(ms):.3f}-{max(ms):.3f} over {len(ms)} replays (CUDA "
+          f"events), {tokens / med * 1e3:.1f} tokens/s | loss {losses[0]:.4f}"
+          f" -> {losses[-1]:.4f}, all finite | the six SNN kernels launched "
+          f"0 times | on {card}")
+    print(f"lm train[{LM_ARCH}]: peak allocated {peak / 1e9:.2f} GB, peak "
+          f"reserved {reserved / 1e9:.2f} GB of {total / 1e9:.2f} GB | on "
+          f"{card}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in pre[LM_TRAIN_STEPS:LM_TRAIN_STEPS + 2]:
+            state, _ = tr.step_fn(state, b)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, ops = per_call(torch, prof, 2)
+    if dev_ms is None:
+        print(f"lm train[{LM_ARCH}]: the profiler recorded no device time: "
+              f"device operations and busy share not measured")
+    else:
+        by = device_time_us(torch, prof)
+        busy = sum(by.values()) / 1e3
+        mm = sum(v for k, v in by.items() if any(
+            w in k.lower() for w in LM_MATMUL_NAMES)) / 2e3
+        print(f"lm train[{LM_ARCH}]: a step runs {ops} device operations, "
+              f"{dev_ms:.3f} ms of device time, of which matmul kernels "
+              f"{mm:.3f} ms; busy {busy:.3f} of {traced_ms:.3f} traced ms "
+              f"over 2 steps ({busy / traced_ms:.1%}) | on {card}")
+    # the optimizer's part alone: clip, AdamW and apply over the 18 leaves
+    # on gradients the size of the params, written into the state's own
+    # buffers as the step writes them (the state is dropped after this);
+    # then with its results dropped, which leaves out the copies into them
+    grads = [torch.full_like(p, 1e-4) for p in tree_leaves(state.params)]
+    bufs = (state.params, state.opt_state)
+    opt_ms = cuda_ms(lambda: update_into(tr.optimizer, list(grads),
+                                         state.opt_state, state.params, bufs),
+                     reps=1, rounds=3)
+    opt_drop_ms = cuda_ms(lambda: update_into(tr.optimizer, list(grads),
+                                              state.opt_state, state.params,
+                                              None),
+                          reps=1, rounds=3)
+    print(f"lm train[{LM_ARCH}]: the optimizer's leaf-by-leaf step alone "
+          f"(global norm, clip, AdamW, apply) {opt_ms:.3f} ms written into "
+          f"the state's buffers, {opt_drop_ms:.3f} ms with its results "
+          f"dropped: the copies into params, mu and nu cost "
+          f"{opt_ms - opt_drop_ms:.3f} ms (CUDA events) | on {card}")
+    out = {"ms": med, "peak": peak, "reserved": reserved, "opt_ms": opt_ms,
+           "opt_drop_ms": opt_drop_ms}
+    del tr, step, state, pre, m, grads, bufs  # the graph, its pool, the buffers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same step without remat: what the recompute costs
+    torch.cuda.reset_peak_memory_stats()
+    tr = lm_trainer(dataclasses.replace(cfg, remat="none"), dev)
+    state = tr.init_state(SEED)
+    batches = lm_batches(cfg, dev)
+    state, _ = tr.step_fn(state, next(batches))
+    rest = [next(batches) for _ in range(5)]
+    torch.cuda.synchronize()
+    marks = []
+    for b in rest:
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        state, _ = tr.step_fn(state, b)
+        e.record()
+        marks.append((a, e))
+    torch.cuda.synchronize()
+    ms0 = [a.elapsed_time(e) for a, e in marks]
+    if (tr.step_fn.captures, tr.step_fn.replays) != (1, 6):
+        fail(f"lm train: remat none ran {tr.step_fn.captures} captures, "
+             f"{tr.step_fn.replays} replays")
+    out["ms_no_remat"] = statistics.median(ms0)
+    print(f"lm train[{LM_ARCH}]: remat none, the same step: median "
+          f"{out['ms_no_remat']:.3f} ms, spread {min(ms0):.3f}-{max(ms0):.3f}"
+          f" over {len(ms0)} replays; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | remat full "
+          f"costs {med - out['ms_no_remat']:.3f} ms a step | on {card}")
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the eager step reads the host nowhere
+    torch.cuda.reset_peak_memory_stats()
+    tr = lm_trainer(cfg, dev, jit=False)
+    state = tr.init_state(SEED)
+    batch = next(lm_batches(cfg, dev))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = tr.step_fn(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loss = float(m["loss"])
+    if not math.isfinite(loss):
+        fail(f"lm train: the eager step's loss is {loss}")
+    print(f"lm train[{LM_ARCH}]: an eager full-width step passes "
+          f"set_sync_debug_mode('error') (loss {loss:.4f}); peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | on {card}")
+    del tr, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_graph_equals_eager(torch, dev, arch, card, quant=None):
+    """(b) ``arch`` at full width, one repeat of its layer group, float32
+    compute (``quant``: the launcher's ``--quant``): 3 graphed steps
+    against 3 eager ones from the same params and batches, bit for bit."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = configs.get(arch)
+    depth = len(transformer.layer_plan(cfg)[0][1])
+    cfg = dataclasses.replace(cfg, dtype="float32", num_layers=depth,
+                              quant=quant)
+    if quant:
+        arch = f"{arch}, quant {quant}"
+    runs = []
+    for jit in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        tr = lm_trainer(cfg, dev, jit=jit)
+        state = tr.init_state(SEED)
+        batches = lm_batches(cfg, dev)
+        losses = []
+        for _ in range(LM_TRAIN_CHECK):
+            state, m = tr.step_fn(state, next(batches))
+            losses.append(m["loss"].clone())
+        torch.cuda.synchronize()
+        graphs = ((tr.step_fn.captures, tr.step_fn.replays) if jit else None)
+        runs.append((tree_map(torch.clone, (state.params, state.opt_state)),
+                     losses, graphs, torch.cuda.max_memory_allocated()))
+        del tr, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    (gs, gl, graphs, gpeak), (es, el, _, epeak) = runs
+    if graphs != (1, LM_TRAIN_CHECK):
+        fail(f"lm train check[{arch}]: captures, replays {graphs}")
+    pairs = list(zip(tree_leaves(gs), tree_leaves(es)))
+    bad = sum(not torch.equal(a, b) for a, b in pairs)
+    if bad or not all(torch.equal(a, b) for a, b in zip(gl, el)):
+        fail(f"lm train check[{arch}]: graphed and eager differ in {bad} of "
+             f"{len(pairs)} state leaves, losses {[float(x) for x in gl]} "
+             f"against {[float(x) for x in el]}")
+    if not all(math.isfinite(float(x)) for x in gl):
+        fail(f"lm train check[{arch}]: losses {[float(x) for x in gl]}")
+    print(f"lm train check[{arch}]: full width, {depth} layer(s) (one repeat "
+          f"of its group), float32 compute, remat {cfg.remat}: "
+          f"{LM_TRAIN_CHECK} graphed steps (1 capture, {LM_TRAIN_CHECK} "
+          f"replays) equal {LM_TRAIN_CHECK} eager steps bit for bit: "
+          f"{len(pairs)} params and Adam leaves, losses "
+          f"{' '.join(f'{float(x):.4f}' for x in gl)} | peak "
+          f"{gpeak / 1e9:.2f} GB graphed, {epeak / 1e9:.2f} GB eager | on "
+          f"{card}")
+
+
+def phase_lm_train(torch, dev, card):
+    """Phase 12: the LM zoo's training path (``Model.loss`` under the
+    launcher's graphed ``Trainer``)."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("lm train: TF32 is on; the float32 checks need it off")
+    t0 = time.perf_counter()
+    full = lm_train_full_width(torch, dev, card)
+    for arch in (LM_ARCH,) + LM_FAMILIES:
+        lm_graph_equals_eager(torch, dev, arch, card)
+    lm_graph_equals_eager(torch, dev, LM_ARCH, card, quant="q115")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+         "--reduced", "--steps", "3"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    lines = out.stdout.strip().splitlines()
+    if (out.returncode != 0 or not any(ln.startswith("final: ") for ln in lines)
+            or "captures 1, graph replays 3" not in lines[-1]):
+        fail(f"lm train: the launcher exited {out.returncode}: "
+             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    print(f"lm train launcher: python -m repro_torch.launch.train --arch "
+          f"{LM_ARCH} --reduced --steps 3 | {lines[0]} | "
+          f"{[ln for ln in lines if ln.startswith('final: ')][0]} | "
+          f"{lines[-1]}")
+    print(f"lm train: phase 12 took {time.perf_counter() - t0:.1f} s | on "
+          f"{card}")
+    return full
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -2741,6 +3063,8 @@ def main() -> int:
     events = phase_events(torch, dev, params_np, card, main_run)
     # 11. the LM zoo's serving path (no kernel of the table on it)
     phase_lm(torch, dev, card)
+    # 12. the LM zoo's training path (no kernel of the table on it either)
+    phase_lm_train(torch, dev, card)
 
     odd = collections.Counter(x for x in RECORD_OFFSETS if x)
     print(f"profiler: {sum(odd.values())} of {len(RECORD_OFFSETS)} kernel "

@@ -87,8 +87,9 @@ def fake_quant(x: torch.Tensor, fmt: QFormat = Q1_15) -> torch.Tensor:
     on a bound the gradient splits 0.5/0.5 between ``x`` and the bound,
     as the reference's ``jnp.clip`` does (``torch.clamp`` passes it whole).
     """
-    lo = torch.tensor(fmt.min_val, dtype=x.dtype, device=x.device)
-    hi = torch.tensor(fmt.max_val, dtype=x.dtype, device=x.device)
+    # filled on the device: a host copy could not run inside a CUDA graph
+    lo = torch.full((), fmt.min_val, dtype=x.dtype, device=x.device)
+    hi = torch.full((), fmt.max_val, dtype=x.dtype, device=x.device)
     clipped = torch.minimum(torch.maximum(x, lo), hi)
     return _STERound.apply(clipped * fmt.scale) / fmt.scale
 

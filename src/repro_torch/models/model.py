@@ -1,9 +1,9 @@
-"""Unified Model API: init / prefill / decode for every arch of the zoo.
+"""Unified Model API: init / loss / prefill / decode for every arch of the zoo.
 
 Handles the modality frontends (stubs, as in the reference):
   - vlm   : precomputed CLIP patch embeddings (B, n_img, 1024) are projected
             by a linear map into d_model and prepended to the token
-            embeddings.
+            embeddings; labels cover only the text positions.
   - audio : EnCodec token streams (B, L, K codebooks); embeddings are the
             sum over K codebook tables (MusicGen), logits are per-codebook.
 
@@ -86,13 +86,15 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Tree:
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    #: where ``init`` draws the params when it is not told (None: the card)
+    device: Any = None
 
     # ------------------------------------------------------------ init
     def init(self, seed: int = 0, device=None) -> Tree:
-        """Random params drawn on ``device`` (None: the card) from the
+        """Random params drawn on ``device`` (None: the model's) from the
         port's own generator, in the reference's layout, distributions
         and scales; a full-width model never passes through host memory."""
-        dev = resolve_device(device)
+        dev = resolve_device(self.device if device is None else device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return self._build(Init(gen, dev, _dtype(self.cfg.param_dtype)))
 
@@ -218,17 +220,44 @@ class Model:
             logits = torch.where(valid, logits, _round(-1e30, logits.dtype))
         return logits
 
-    def forward_logits(self, p, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Teacher-forced logits at every text position (``backbone`` then
-        ``_head``), in the compute dtype."""
+    def _forward(self, p, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits at every text position in the compute dtype, the summed
+        MoE aux loss): ``backbone`` then ``_head``."""
         p = self._maybe_quant(p)
         x = self._inputs(p, batch)
         B, L = x.shape[0], x.shape[1]
         positions = torch.arange(L, device=x.device).expand(B, L)
-        h, _ = self.backbone(p, x, positions)
+        h, aux = self.backbone(p, x, positions)
         if self.cfg.num_image_tokens:  # only text positions produce logits
             h = h[:, self.cfg.num_image_tokens:]
-        return self._head(p, h)
+        return self._head(p, h), aux
+
+    def forward_logits(self, p, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Teacher-forced logits at every text position (``backbone`` then
+        ``_head``), in the compute dtype."""
+        return self._forward(p, batch)[0]
+
+    # ------------------------------------------------------------ train
+    def loss(self, p, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens (B, L[, K]) integer, targets the same shape (-1 =
+        masked), img_embeds for the vlm.  Cross-entropy over the padded
+        vocab in float32 plus the MoE aux term; reads the host nowhere.
+        Metrics are 0-dim tensors on the device, detached."""
+        logits, aux = self._forward(p, batch)
+        logits = logits.float()
+        targets = batch["targets"]
+        mask = (targets >= 0).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        tgt = torch.clamp(targets, min=0).long()
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        tokens = torch.sum(mask)
+        ce = torch.sum(nll * mask) / torch.clamp(tokens, min=1.0)
+        loss = ce + 0.01 * aux / max(self.cfg.num_layers, 1)
+        metrics = {"loss": loss.detach(), "ce": ce.detach(),
+                   "moe_aux": aux.detach(), "tokens": tokens}
+        return loss, metrics
 
     # ---------------------------------------------------------- serving
     def prefill(self, p, batch: Dict[str, torch.Tensor],
@@ -269,7 +298,7 @@ class Model:
 
     def init_cache(self, batch: int, cache_len: int, device=None) -> Tree:
         cfg = self.cfg
-        dev = resolve_device(device)
+        dev = resolve_device(self.device if device is None else device)
         return {
             gname: transformer.group_cache_init(
                 cfg, pattern, repeats, batch, cache_len, _dtype(cfg.dtype), dev)

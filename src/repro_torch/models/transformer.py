@@ -11,20 +11,27 @@ reference's layout), plus an optional non-divisible tail group.
 
 Blocks are pre-norm residual:  x += mixer(norm(x)); x += ffn(norm(x)).
 The reference scans the repeat dimension; here a group loops over it,
-each layer reading views of the stacked params and caches.  Caches are
+each layer reading views of the stacked params and caches, and in
+training each repeat is checkpointed as ``cfg.remat`` says.  Caches are
 stacked the same way; decode writes them in place.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.models import attention, griffin, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
 
@@ -226,16 +233,61 @@ def _layer(tree, r: int):
     return tree_map(lambda t: t[r], tree)
 
 
+def _unbound(gp) -> List[Tree]:
+    """The group's params, one tree a repeat, as the views of one
+    ``unbind`` of each stacked leaf: its backward stacks the repeats'
+    gradients in one write, where a view by index would fill a zero
+    tensor of the stacked leaf's size for every repeat."""
+    cols = [t.unbind(0) for t in tree_leaves(gp)]
+    return [tree_unflatten(gp, [c[r] for c in cols])
+            for r in range(_repeats(gp))]
+
+
+_DOTS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``, the reference's ``jax.checkpoint`` of one
+    repeat: "full" saves only its inputs and recomputes the rest in the
+    backward; "dots" saves the matmul outputs (``checkpoint_dots``) and
+    recomputes the rest; "none" saves everything.  It applies only under
+    autograd.  No random draw happens in a repeat, so the generator's
+    state is not saved (its read could not run inside a CUDA graph)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ops = [getattr(torch.ops.aten, name).default for name in _DOTS]
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       ops)
+    else:
+        context_fn = noop_context_fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=context_fn)
+
+    return wrapped
+
+
 def group_forward(gp, x, positions, cfg: ModelConfig, pattern):
-    """Loop over the group's repeat dim.  Returns (x, summed aux).
-    ``cfg.remat`` is a training option and changes nothing here."""
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for r in range(_repeats(gp)):
-        lp = _layer(gp, r)
+    """Loop over the group's repeat dim, each repeat under ``cfg.remat``.
+    Returns (x, summed aux)."""
+
+    def body(h, lp):
+        aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, spec in enumerate(pattern):
-            x, aux = block_forward(lp[f"b{i}"], x, positions, cfg, spec)
+            h, aux = block_forward(lp[f"b{i}"], h, positions, cfg, spec)
             if "moe_aux_loss" in aux:
-                total = total + aux["moe_aux_loss"]
+                aux_sum = aux_sum + aux["moe_aux_loss"]
+        return h, aux_sum
+
+    body = _remat(body, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in _unbound(gp):
+        x, aux = body(x, lp)
+        total = total + aux
     return x, total
 
 

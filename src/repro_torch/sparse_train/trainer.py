@@ -104,7 +104,7 @@ class EventSNNModel:
 
     def init(self, seed: int):
         gen = torch.Generator().manual_seed(int(seed))
-        return snn.init_params(gen, self.cfg, self.device), None
+        return snn.init_params(gen, self.cfg, self.device)
 
     def param_count(self) -> int:
         sizes = self.cfg.layer_sizes

@@ -1,14 +1,20 @@
 """Training loop substrate: step builder, grad accumulation, metrics,
 checkpoint/restart, straggler watchdog and ``repro_torch.obs`` wiring.
 
-A model is any object with ``init(seed) -> (params, aux)`` and
+A model is any object with ``init(seed) -> params`` and
 ``loss(params, batch) -> (loss, metrics)``; params are a tree
-(``repro_torch.tree``) of float tensors.  A model may also have
+(``repro_torch.tree``) of float tensors: the event SNN
+(``sparse_train.trainer.EventSNNModel``) and the LM zoo's
+``models.model.Model``.  A model may also have
 ``prepare(batch) -> batch``, the host part of its loss (the event SNN
 seeds its dropout generator there and draws the masks' uniforms); its
 loss then takes a prepared batch and reads the host nowhere.
 ``make_train_step`` builds the eager step: autograd over the loss, the
-optimizer update, a new state.
+optimizer update, a new state.  ``make_step_parts`` builds the static
+one, which writes the new state leaf by leaf into buffers
+(``optim.adam.update_into``): the same values, with one leaf's
+temporaries live at a time in place of a tree of each, so that a
+full-width LM's step fits beside its params and Adam state.
 
 ``Trainer(jit=True, donate=True)``, the counterpart of the reference's
 ``jax.jit(step, donate_argnums=(0,))``, runs the step as a
@@ -40,7 +46,12 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.timeseries import TimeSeriesSampler
 from repro_torch.obs.trace import TraceRecorder
-from repro_torch.optim.adam import Optimizer, apply_updates, global_norm
+from repro_torch.optim.adam import (
+    Optimizer,
+    apply_updates,
+    global_norm,
+    update_into,
+)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Tree = Any
@@ -52,15 +63,13 @@ class TrainState(NamedTuple):
     step: int  # host-side counter: reading it never waits on the device
 
 
-def make_step_parts(
-    model, optimizer: Optimizer, accum_steps: int = 1
-) -> Tuple[Callable, Callable]:
-    """The step in two parts: ``host(batch) -> batch`` runs the model's
-    ``prepare`` on each microbatch (nothing without one), and
-    ``device(state, batch) -> (state, metrics)`` the rest, which reads the
-    host nowhere, so a CUDA graph can capture it.  With accum_steps > 1
-    the batch's leading dim must be (accum_steps * microbatch); gradients
-    are summed over the microbatches in order and averaged."""
+def _step_fns(model, accum_steps: int) -> Tuple[Callable, Callable]:
+    """``host(batch) -> batch`` runs the model's ``prepare`` on each
+    microbatch (nothing without one); ``grads(params, batch) -> (metrics,
+    gradient leaves in walk order)``, which reads the host nowhere.  With
+    accum_steps > 1 the batch's leading dim must be (accum_steps *
+    microbatch); gradients are summed over the microbatches in order and
+    averaged."""
     prepare = getattr(model, "prepare", None)
 
     def micro(batch, j):
@@ -77,31 +86,44 @@ def make_step_parts(
         return {**batch, **{k: torch.cat([mb[k] for mb in mbs]) for k in added}}
 
     def grads_of(params, batch):
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss, metrics = model.loss(live, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(live))
-        return loss.detach(), metrics, tree_unflatten(params, list(grads))
+            loss, metrics = model.loss(tree_unflatten(params, live), batch)
+            grads = torch.autograd.grad(loss, live)
+        return loss.detach(), metrics, list(grads)
 
-    def device(state: TrainState, batch: Dict[str, torch.Tensor]):
-        params, opt_state = state.params, state.opt_state
+    def grads(params, batch):
         if accum_steps == 1:
-            loss, metrics, grads = grads_of(params, batch)
-        else:
-            gsum, lsum = None, 0.0
-            for j in range(accum_steps):
-                l, _, g = grads_of(params, micro(batch, j))
-                gsum = g if gsum is None else tree_map(torch.add, gsum, g)
-                lsum = lsum + l
-            grads = tree_map(lambda g: g / accum_steps, gsum)
-            loss = lsum / accum_steps
-            metrics = {"loss": loss}
+            _, metrics, g = grads_of(params, batch)
+            return dict(metrics), g
+        gsum, lsum = None, 0.0
+        for j in range(accum_steps):
+            l, _, g = grads_of(params, micro(batch, j))
+            gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
+            lsum = lsum + l
+        return {"loss": lsum / accum_steps}, [g / accum_steps for g in gsum]
+
+    return host, grads
+
+
+def make_step_parts(
+    model, optimizer: Optimizer, accum_steps: int = 1
+) -> Tuple[Callable, Callable]:
+    """The static step in two parts: ``host(batch) -> batch`` (the model's
+    ``prepare``, ``_step_fns``), and ``device(state, batch, out) ->
+    metrics``, which reads the host nowhere, so a CUDA graph can capture
+    it: autograd over the loss, then the optimizer's step written leaf by
+    leaf into ``out``, a ``(params, opt_state)`` pair of buffers that may
+    be the state's own (``optim.adam.update_into``); ``out=None`` computes
+    it and changes nothing (a warm-up)."""
+    host, grads_fn = _step_fns(model, accum_steps)
+
+    def device(state: TrainState, batch: Dict[str, torch.Tensor], out):
+        metrics, grads = grads_fn(state.params, batch)
         with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = apply_updates(params, updates)
-            metrics = dict(metrics)
             metrics["grad_norm"] = global_norm(grads)
-        return TrainState(params, opt_state, state.step + 1), metrics
+            update_into(optimizer, grads, state.opt_state, state.params, out)
+        return metrics
 
     return host, device
 
@@ -110,11 +132,19 @@ def make_train_step(
     model, optimizer: Optimizer, accum_steps: int = 1
 ) -> Callable:
     """The eager step, (state, batch) -> (state, metrics): the host part,
-    then the device part (``make_step_parts``), a new state each call."""
-    host, device = make_step_parts(model, optimizer, accum_steps)
+    autograd, then the optimizer's update over whole trees, a new state
+    each call (the same values as ``make_step_parts``'s step)."""
+    host, grads_fn = _step_fns(model, accum_steps)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        return device(state, host(batch))
+        metrics, grads = grads_fn(state.params, host(batch))
+        with torch.no_grad():
+            grads = tree_unflatten(state.params, grads)
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  state.params)
+            params = apply_updates(state.params, updates)
+            metrics["grad_norm"] = global_norm(grads)
+        return TrainState(params, opt_state, state.step + 1), metrics
 
     return train_step
 
@@ -146,11 +176,11 @@ class StaticStep:
     static inputs and runs the device part over the buffers, writing the
     new state into them after every read.  With CUDA buffers the device
     part is captured once per signature into a ``torch.cuda.CUDAGraph``
-    and replayed: first a warm-up on copies of the state on a side stream
-    (it builds the kernels, raises their shared-memory limits, fills the
-    plan caches and advances no buffer), then the capture.  A failed
-    capture or replay raises; the step never falls back to running
-    eagerly.  On the CPU, which has no graphs, the same device part runs
+    and replayed: first a warm-up on a side stream (the whole step with its
+    results dropped: it builds the kernels, raises their shared-memory
+    limits, fills the plan caches and advances no buffer), then the
+    capture.  A failed capture or replay raises; the step never falls
+    back to running eagerly.  On the CPU, which has no graphs, the same device part runs
     uncaptured over the same buffers.
 
     ``donate=True``: the state passed in becomes the state buffers and the
@@ -206,11 +236,10 @@ class StaticStep:
         return self._export(state.step)
 
     def _body(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The device part over the buffers; the writes come last."""
-        params, opt_state = self._state
-        new, metrics = self.device(TrainState(params, opt_state, 0), inputs)
-        _copy_into(self._state, (new.params, new.opt_state))
-        return metrics
+        """The device part over the buffers, writing the new state into
+        them leaf by leaf, each after its last read."""
+        state = TrainState(*self._state, 0)
+        return self.device(state, inputs, self._state)
 
     def _build(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         entry = {"inputs": {k: v.clone() for k, v in batch.items()},
@@ -221,8 +250,10 @@ class StaticStep:
             side = torch.cuda.Stream(first.device)
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                copies = tree_map(torch.clone, self._state)
-                self.device(TrainState(*copies, 0), entry["inputs"])
+                # the whole step, its results dropped: no buffer advances
+                # and no copy of the state is made
+                self.device(TrainState(*self._state, 0), entry["inputs"],
+                            None)
             cur.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
@@ -365,7 +396,7 @@ class Trainer:
 
     def init_state(self, seed: int) -> TrainState:
         self.rng = int(seed)
-        params, _ = self.model.init(self.rng)
+        params = self.model.init(self.rng)
         return TrainState(params, self.optimizer.init(params), 0)
 
     # ------------------------------------------------- checkpoint payload

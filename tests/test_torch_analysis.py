@@ -41,7 +41,7 @@ class _Linear:
 
     def init(self, seed):
         g = torch.Generator().manual_seed(seed)
-        return {"w": torch.randn((6, 3), generator=g)}, None
+        return {"w": torch.randn((6, 3), generator=g)}
 
     def loss(self, params, batch):
         err = batch["x"] @ params["w"] - batch["y"]

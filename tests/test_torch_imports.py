@@ -94,3 +94,12 @@ def test_scan_covers_the_lm_zoo_serving_path():
                  "configs/__init__.py", "examples/serve_quantized_lm.py")
                 + tuple(f"configs/{a}.py" for a in archs)):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_scan_covers_the_lm_training_path():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("data/tokens.py", "distributed/__init__.py",
+                "distributed/compression.py", "optim/adam.py",
+                "train/loop.py", "launch/train.py", "models/model.py",
+                "models/transformer.py"):
+        assert f"src/repro_torch/{mod}" in names, mod

@@ -355,7 +355,7 @@ _HAZARDS = {
         ENGINE, "        T = train.shape[0]\n",
         "        t = time.perf_counter()\n", "RL101"),
     "float_in_static_step_body": (
-        LOOP, "        _copy_into(self._state, (new.params, new.opt_state))\n",
+        LOOP, "        state = TrainState(*self._state, 0)\n",
         "        lr = float(inputs['lr'])\n", "RL102"),
     "ring_rebound_outside_grow_ring": (
         ENGINE, "    def steady_state_recompiles(self) -> int:\n",
