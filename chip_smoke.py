@@ -139,26 +139,39 @@ Phases, in order; any failure exits non-zero:
    0): ``stablelm-1.6b`` at full width (24 layers, d_model 2048, vocab
    100,352; 1,644,515,328 float32 params drawn on the card from a seed),
    bfloat16 compute, ``ServeEngine(batch_size=4, cache_len=128)`` on 8
-   requests of 4-23 tokens x 16 new tokens, greedy: prefill ms, ms a
-   decode step (CUDA events: median and spread), tokens/s, device
-   operations a decode step and the card's busy share over two traced
-   steps (``torch.profiler``), a greedy step under
-   ``set_sync_debug_mode("error")``, peak device memory.  The gate: the
-   same params and requests served in float32 compute with TF32 off, and
-   the teacher-forced forward over each batch's right-padded prompts and
-   generated tokens; its argmax at every generated position must be the
-   generated token (positions with a top-2 gap under 1e-3 skipped and
-   counted); the largest prefill/decode logit difference from the
-   forward is printed, not gated.  Then the same check at full width,
-   float32, 2 requests x 4 tokens, for one arch of each other family:
+   requests of 4-23 tokens x 16 new tokens, greedy: first the eager
+   engine (``cuda_graph=False``), then the graphed one (prefill and decode
+   replayed as CUDA graphs over a static cache): a cold serve that
+   captures exactly one graph a signature and a warm serve that captures
+   none (``RecompileDetector``), both token for token equal to the eager
+   serve; the first batch's prefill logits and every decode step's logits
+   replayed equal to the eager engine's bit for bit.  For both: tokens/s
+   (the graphed cold and warm serves), prefill ms and ms a decode step
+   (CUDA events: median and spread), device operations and device ms a
+   step and the busy share over two traced steps (``torch.profiler``), a
+   greedy step under ``set_sync_debug_mode("error")``, peak allocated and
+   reserved memory; the ms of each capture.  The gate: the same params
+   and requests served in float32 compute with TF32 off (graphed, and
+   equal to eager), and the teacher-forced forward over each batch's
+   right-padded prompts and generated tokens; its argmax at every
+   generated position must be the generated token (positions with a
+   top-2 gap under 1e-3 skipped and counted); the largest prefill/decode
+   logit difference from the forward is printed, not gated.  Then the
+   same check at full width, float32, 2 requests x 4 tokens, graphed
+   equal to eager, for one arch of each other family:
    ``granite-moe-1b-a400m`` (no drops), ``mamba2-130m``,
    ``recurrentgemma-2b``, ``minicpm3-4b``, ``phi-3-vision-4.2b`` (576
    image embeddings a request) and ``musicgen-medium`` (4 codebooks);
    ``mixtral-8x7b`` and ``yi-34b`` (187 and 138 GB of float32 params) and
    ``codeqwen1.5-7b`` (dense, as stablelm) run reduced only.  Then all
    ten archs at ``reduced()``: prefill + decode within 5e-4 of the
-   forward, and ``python -m repro_torch.launch.serve``'s LM mode in
-   process (``--temperature 0.8 --quant q115`` on stablelm).
+   forward, the graphed engine's tokens equal the eager one's on the
+   launcher's requests (greedy; and sampled at temperature 0.8 under
+   q115 on stablelm, one seed for both), and ``python -m
+   repro_torch.launch.serve``'s LM mode in process, graphed by default
+   (``--temperature 0.8 --quant q115`` on stablelm), and
+   ``repro_torch.examples.serve_quantized_lm --q115`` (3 requests x 4
+   tokens) in process, graphed by default.
 12. The LM zoo's training path (``Model.loss`` under the launcher's
    ``Trainer``; none of the six kernels runs on it, and their launch
    counts must stay 0). (a) ``stablelm-1.6b`` at full width and depth,
@@ -411,7 +424,7 @@ def phase_analysis(card):
     doc = json.loads(out.read_text())
     plans = {p["kernel"]: p for p in doc["kernels"]}
     unread = [k for k, p in plans.items() if p["registers"] is None]
-    if unread or len(doc["graph_bodies"]) != 3:
+    if unread or len(doc["graph_bodies"]) != 5:
         fail(f"analysis: no ptxas registers for {unread}, graph bodies "
              f"{doc['graph_bodies']}")
     print(f"analysis: {len(plans)} kernel budgets with registers and spills "
@@ -2467,25 +2480,59 @@ def lm_check(torch, dev, model, params, reqs, outs, B, cache_len):
     return checked, skipped, bad, diff
 
 
+def lm_serve(torch, eng, reqs):
+    """(outputs, wall seconds) of one synchronised serve."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0
+
+
+def lm_recorded(eng, reqs):
+    """(outputs, every logits tensor the engine sampled from, in order)."""
+    seen = []
+    sample = eng._sample
+    eng._sample = lambda logits, *a: (seen.append(logits.clone()),
+                                      sample(logits, *a))[1]
+    try:
+        return eng.generate(reqs), seen
+    finally:
+        del eng._sample
+
+
+def lm_same_tokens(name, got, want):
+    """Fail unless two serves generated the same tokens."""
+    import numpy as np
+
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not np.array_equal(g, w)]
+    if bad or len(got) != len(want):
+        fail(f"{name}: graphed tokens differ from eager in requests {bad}")
+
+
 def lm_serve_checked(torch, dev, arch, cfg, params, reqs, B, cache_len,
                      card):
-    """Serve ``reqs`` greedy, then ``lm_check``: fails on any mismatch."""
+    """Serve ``reqs`` greedy on the graphed engine, then ``lm_check``: fails
+    on any mismatch, and unless the eager engine's tokens are the same."""
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServeEngine
 
     model = Model(cfg)
     eng = ServeEngine(model, params, batch_size=B, cache_len=cache_len)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    outs, wall = lm_serve(torch, eng, reqs)
+    captures = eng._prefill._cache_size() + eng._decode._cache_size()
+    del eng
+    eager = ServeEngine(model, params, batch_size=B, cache_len=cache_len,
+                        cuda_graph=False)
+    lm_same_tokens(f"lm[{arch}]", outs, eager.generate(reqs))
     n = sum(len(o) for o in outs)
     checked, skipped, bad, diff = lm_check(torch, dev, model, params, reqs,
                                            outs, B, cache_len)
     print(f"lm[{arch}]: {cfg.dtype} compute, {len(reqs)} requests x "
           f"{reqs[0].max_new_tokens} new tokens in {wall * 1e3:.1f} ms "
-          f"({n / wall:.1f} tok/s) | greedy check: {checked} positions, "
+          f"({n / wall:.1f} tok/s, graphed, {captures} captures included) | "
+          f"graphed tokens equal eager | greedy check: {checked} positions, "
           f"{bad} mismatches, {skipped} skipped (top-2 gap < {LM_GAP}) | "
           f"max |prefill/decode - forward| logits {diff:.3e} (ungated) | "
           f"on {card}")
@@ -2495,17 +2542,63 @@ def lm_serve_checked(torch, dev, arch, cfg, params, reqs, B, cache_len,
     return outs
 
 
+def lm_step_ms(torch, prefill, decode, steps):
+    """(ms of ``prefill()`` (median of 5, CUDA events), ms of each of
+    ``steps`` greedy decode steps from its logits (CUDA events), the last
+    token)."""
+    prefill_ms = cuda_ms(prefill, reps=1, rounds=5)
+    tok = prefill().argmax(-1)
+    marks = []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        tok = decode(tok).argmax(-1)
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return prefill_ms, [a.elapsed_time(b) for a, b in marks], tok
+
+
+def lm_step_profile(torch, decode, tok):
+    """One greedy step under ``set_sync_debug_mode("error")`` (a host read
+    raises), then 2 traced steps: (device ms a step, device operations a
+    step, busy share, traced ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok = decode(tok).argmax(-1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            tok = decode(tok).argmax(-1)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, ops = per_call(torch, prof, 2)
+    busy = sum(device_time_us(torch, prof).values()) / 1e3
+    return dev_ms, ops, busy / traced_ms, traced_ms
+
+
 def lm_full_width(torch, dev, card):
     """stablelm-1.6b at full width in its own dtypes (float32 params,
-    bfloat16 compute): the served run's numbers, then the float32 gate."""
+    bfloat16 compute): the eager engine, then the graphed one (a cold
+    serve that captures, a warm serve that replays), gated equal token
+    for token and logits for logits; their numbers; then the float32
+    gate."""
     import dataclasses
 
+    import numpy as np
+
     from repro_torch import configs
-    from repro_torch.kernels import aer_matmul, lif_fused, q115_matmul
-    from repro_torch.kernels import snn_chunk, spike_matmul
+    from repro_torch.analysis.contracts import RecompileDetector
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import ServeEngine
-    from torch.profiler import ProfilerActivity, profile
 
     cfg = configs.get(LM_ARCH)
     model = Model(cfg)
@@ -2519,100 +2612,157 @@ def lm_full_width(torch, dev, card):
           f"{n_params * 4 / 1e9:.2f} GB float32, drawn on the card in "
           f"{time.perf_counter() - t0:.2f} s")
     reqs = lm_requests(cfg, LM_REQUESTS, LM_NEW, SEED)
-    eng = ServeEngine(model, params, batch_size=LM_BATCH, cache_len=LM_CACHE)
-    eng.generate(lm_requests(cfg, LM_BATCH, 2, SEED + 1))  # warm-up
-    counted = (snn_chunk.snn_chunk, aer_matmul.aer_spike_matmul_batched,
-               aer_matmul.aer_spike_matmul, lif_fused.lif_fused,
-               spike_matmul.spike_matmul, q115_matmul.q115_matmul)
+    batches = [reqs[s: s + LM_BATCH] for s in range(0, LM_REQUESTS, LM_BATCH)]
+    # the signatures a cold serve sets up: a prefill per (B, Lmax), a
+    # decode per B
+    n_prefill = len({(len(c), max(len(r.prompt) for r in c))
+                     for c in batches})
+    n_decode = len({len(c) for c in batches})
+    counted = lm_kernels()
     for fn in counted:
         fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = eng.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+    # the eager engine (cuda_graph=False): the baseline
+    torch.cuda.reset_peak_memory_stats()
+    eager = ServeEngine(model, params, batch_size=LM_BATCH,
+                        cache_len=LM_CACHE, cuda_graph=False)
+    eager.generate(lm_requests(cfg, LM_BATCH, 2, SEED + 1))  # warm-up
+    want, e_wall = lm_serve(torch, eager, reqs)
+    e_peak = (torch.cuda.max_memory_allocated() / 1e9,
+              torch.cuda.max_memory_reserved() / 1e9)
+
+    # the graphed engine: a cold serve captures one graph a signature, a
+    # warm serve only replays
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(model, params, batch_size=LM_BATCH, cache_len=LM_CACHE)
+    with RecompileDetector() as cold_det:
+        cold_det.track("prefill", eng._prefill, allowed=n_prefill)
+        cold_det.track("decode", eng._decode, allowed=n_decode)
+        cold, c_wall = lm_serve(torch, eng, reqs)
+    with RecompileDetector() as warm_det:
+        warm_det.track("prefill", eng._prefill)
+        warm_det.track("decode", eng._decode)
+        warm, w_wall = lm_serve(torch, eng, reqs)
+    g_peak = (torch.cuda.max_memory_allocated() / 1e9,
+              torch.cuda.max_memory_reserved() / 1e9)
+    grown = (cold_det.cache_growth("prefill"), cold_det.cache_growth("decode"))
+    captures_s = eng._prefill.capture_s + eng._decode.capture_s
+    if (grown != (n_prefill, n_decode) or cold_det.unexpected()
+            or cold_det.backend_compiles != n_prefill + n_decode
+            or len(captures_s) != n_prefill + n_decode):
+        fail(f"lm[{LM_ARCH}]: the cold serve captured {grown} (prefill, "
+             f"decode) for {n_prefill}, {n_decode} signatures: "
+             f"{cold_det.report()}")
+    if warm_det.unexpected() or warm_det.backend_compiles:
+        fail(f"lm[{LM_ARCH}]: the warm serve captured again: "
+             f"{warm_det.report()}")
+    lm_same_tokens(f"lm[{LM_ARCH}] cold", cold, want)
+    lm_same_tokens(f"lm[{LM_ARCH}] warm", warm, want)
+    n_tok = sum(len(o) for o in warm)
+    if [len(o) for o in warm] != [LM_NEW] * LM_REQUESTS:
+        fail(f"lm[{LM_ARCH}]: generated lengths {[len(o) for o in warm]}")
+    if not all(((o >= 0) & (o < cfg.vocab_size)).all() for o in warm):
+        fail(f"lm[{LM_ARCH}]: a generated token outside the vocab")
     launched = {fn.__name__: fn.launches for fn in counted if fn.launches}
     if launched:
         fail(f"lm[{LM_ARCH}]: the LM path launched {launched}")
-    n_tok = sum(len(o) for o in outs)
-    if [len(o) for o in outs] != [LM_NEW] * LM_REQUESTS:
-        fail(f"lm[{LM_ARCH}]: generated lengths {[len(o) for o in outs]}")
-    if not all(((o >= 0) & (o < cfg.vocab_size)).all() for o in outs):
-        fail(f"lm[{LM_ARCH}]: a generated token outside the vocab")
 
-    # prefill and decode steps of the first batch, by CUDA events
-    first = reqs[:LM_BATCH]
+    # the first batch's logits: each replay against the eager call
+    first = batches[0]
+    g_out, g_logits = lm_recorded(eng, first)
+    e_out, e_logits = lm_recorded(eager, first)
+    lm_same_tokens(f"lm[{LM_ARCH}] first batch", g_out, e_out)
+    differ = [i for i, (g, e) in enumerate(zip(g_logits, e_logits))
+              if not torch.equal(g, e)]
+    if differ or len(g_logits) != LM_NEW or len(e_logits) != LM_NEW:
+        fail(f"lm[{LM_ARCH}]: replayed logits differ from eager at calls "
+             f"{differ} (0 the prefill) of {len(g_logits)}")
+    del g_logits, e_logits
+
+    # prefill and decode steps of the first batch, by CUDA events: the
+    # graphed engine's replays, then the eager engine's calls
     Lmax = max(len(r.prompt) for r in first)
-    import numpy as np
-
     tokens = torch.as_tensor(np.stack([np.pad(r.prompt, (0, Lmax - len(r.prompt)))
                                        for r in first])).to(dev)
     with torch.no_grad():
-        prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": tokens},
-                                                   LM_CACHE), reps=1, rounds=5)
-        logits, cache = model.prefill(params, {"tokens": tokens}, LM_CACHE)
-        tok = logits.argmax(-1)
-        pos = torch.full((LM_BATCH,), Lmax, device=dev)
-        marks = []
-        for j in range(LM_NEW - 1):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            logits, cache = model.decode_step(params, tok[:, None], pos + j,
-                                              cache)
-            tok = logits.argmax(-1)
-            b.record()
-            marks.append((a, b))
-        torch.cuda.synchronize()
-        steps = [a.elapsed_time(b) for a, b in marks]
-        # one greedy step reads nothing back and allocates through the
-        # caching allocator only
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            logits, cache = model.decode_step(params, tok[:, None],
-                                              pos + LM_NEW, cache)
-            tok = logits.argmax(-1)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for j in range(2):
-                logits, cache = model.decode_step(
-                    params, tok[:, None], pos + LM_NEW + 1 + j, cache)
-                tok = logits.argmax(-1)
-            torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms, ops = per_call(torch, prof, 2)
-    busy = sum(device_time_us(torch, prof).values()) / 1e3
+        replays = eng._decode.replays
+        g_pre, g_steps, tok = lm_step_ms(
+            torch, lambda: eng._prefill({"tokens": tokens}), eng._decode,
+            LM_NEW - 1)
+        g_dev, g_ops, g_busy, g_traced = lm_step_profile(torch, eng._decode,
+                                                         tok)
+        if eng._decode.replays != replays + LM_NEW + 2:
+            fail(f"lm[{LM_ARCH}]: timed decode steps were not replays")
+        cache = {}
+        pos = torch.full((LM_BATCH,), Lmax, dtype=torch.long, device=dev)
+
+        def eager_prefill():
+            logits, cache["c"] = model.prefill(params, {"tokens": tokens},
+                                               LM_CACHE)
+            pos.fill_(Lmax)
+            return logits
+
+        def eager_decode(tok):
+            logits, cache["c"] = model.decode_step(params, tok[:, None], pos,
+                                                   cache["c"])
+            pos.add_(1)
+            return logits
+
+        e_pre, e_steps, tok = lm_step_ms(torch, eager_prefill, eager_decode,
+                                         LM_NEW - 1)
+        e_dev, e_ops, e_busy, e_traced = lm_step_profile(torch, eager_decode,
+                                                         tok)
+    del cache
+    med = statistics.median
     print(f"lm[{LM_ARCH}]: served {LM_REQUESTS} requests (batch {LM_BATCH}, "
           f"cache {LM_CACHE}, prompts {min(len(r.prompt) for r in reqs)}-"
           f"{max(len(r.prompt) for r in reqs)} tokens) x {LM_NEW} new "
-          f"tokens, greedy, bfloat16 compute: {wall * 1e3:.1f} ms, "
-          f"{n_tok / wall:.1f} tok/s | on {card}")
-    print(f"lm[{LM_ARCH}]: prefill {prefill_ms:.3f} ms (batch {LM_BATCH} x "
-          f"{Lmax} tokens) | decode step median {statistics.median(steps):.3f}"
-          f" ms, spread {min(steps):.3f}-{max(steps):.3f} over {len(steps)} "
-          f"steps (CUDA events) | on {card}")
-    if dev_ms is None:
-        print(f"lm[{LM_ARCH}]: the profiler recorded no device time: device "
-              f"operations and busy share not measured")
-    else:
-        print(f"lm[{LM_ARCH}]: a decode step runs {ops} device operations, "
-              f"{dev_ms:.3f} ms of device time; busy {busy:.3f} of "
-              f"{traced_ms:.3f} traced ms over 2 steps ({busy / traced_ms:.1%}) "
-              f"| no host sync in a greedy step (sync debug mode) | "
-              f"the six SNN kernels launched 0 times | on {card}")
+          f"tokens, greedy, bfloat16 compute: graphed warm {w_wall * 1e3:.1f}"
+          f" ms, {n_tok / w_wall:.1f} tok/s; graphed cold (captures "
+          f"included) {c_wall * 1e3:.1f} ms, {n_tok / c_wall:.1f} tok/s; "
+          f"eager {e_wall * 1e3:.1f} ms, {n_tok / e_wall:.1f} tok/s | "
+          f"tokens equal (cold, warm and eager) | on {card}")
+    print(f"lm[{LM_ARCH}]: captures {n_prefill} prefill + {n_decode} decode "
+          f"in the cold serve, 0 in the warm (RecompileDetector), each "
+          f"{', '.join(f'{s * 1e3:.1f}' for s in captures_s)} ms | prefill "
+          f"and {LM_NEW - 1} decode steps' logits of the first batch equal "
+          f"eager bit for bit | on {card}")
+    print(f"lm[{LM_ARCH}]: prefill graphed {g_pre:.3f} ms, eager "
+          f"{e_pre:.3f} ms (batch {LM_BATCH} x {Lmax} tokens) | decode step "
+          f"graphed median {med(g_steps):.3f} ms, spread {min(g_steps):.3f}-"
+          f"{max(g_steps):.3f}; eager median {med(e_steps):.3f} ms, spread "
+          f"{min(e_steps):.3f}-{max(e_steps):.3f} over {len(g_steps)} steps "
+          f"each (CUDA events) | on {card}")
+    for name, d, ops, busy, traced, steps in (
+            ("graphed", g_dev, g_ops, g_busy, g_traced, g_steps),
+            ("eager", e_dev, e_ops, e_busy, e_traced, e_steps)):
+        if d is None:
+            print(f"lm[{LM_ARCH}]: {name}: the profiler recorded no device "
+                  f"time: device operations and busy share not measured")
+        else:
+            # untraced: a step's device time over its CUDA-event time
+            print(f"lm[{LM_ARCH}]: {name} decode step: {ops} device "
+                  f"operations, {d:.3f} ms of device time; busy "
+                  f"{busy:.1%} of {traced:.3f} traced ms over 2 steps, "
+                  f"{d / med(steps):.1%} of the untraced step's median | no "
+                  f"host sync in a greedy step (sync debug mode) | on {card}")
+    print(f"lm[{LM_ARCH}]: peak device memory graphed {g_peak[0]:.2f} GB "
+          f"allocated, {g_peak[1]:.2f} GB reserved; eager {e_peak[0]:.2f} GB "
+          f"allocated, {e_peak[1]:.2f} GB reserved | the six SNN kernels "
+          f"launched 0 times | on {card}")
+    del eng, eager
+    torch.cuda.empty_cache()
 
     # the gate: the same params in float32 compute.  TF32 stays off (main
     # sets it so) for every float32 result this phase gates
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         fail("lm: TF32 is on; the float32 greedy check needs it off")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
     lm_serve_checked(torch, dev, LM_ARCH, cfg32, params, reqs, LM_BATCH,
                      LM_CACHE, card)
-    print(f"lm[{LM_ARCH}]: peak device memory "
+    print(f"lm[{LM_ARCH}]: peak device memory (float32 gate) "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | on {card}")
 
 
@@ -2625,7 +2775,9 @@ def phase_lm(torch, dev, card):
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServeEngine
 
+    t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     lm_full_width(torch, dev, card)
@@ -2693,6 +2845,20 @@ def phase_lm(torch, dev, card):
         if max(errs) >= 5e-4:
             fail(f"lm reduced {arch}: prefill + decode off the forward by "
                  f"{max(errs):.3e}")
+        # graphed against eager on the launcher's requests: greedy, and
+        # sampled on one seed for stablelm (the launcher's q115 run)
+        cases = [(cfg, 0.0)]
+        if arch == LM_ARCH:
+            cases.append((dataclasses.replace(cfg, quant="q115"), 0.8))
+        for c, temp in cases:
+            reqs = serve.lm_requests(c, 3, 4, temp, seed=SEED)
+            cache_len = 64 + c.num_image_tokens
+            got = ServeEngine(Model(c), params, 2, cache_len,
+                              seed=SEED).generate(reqs)
+            want = ServeEngine(Model(c), params, 2, cache_len, seed=SEED,
+                               cuda_graph=False).generate(reqs)
+            lm_same_tokens(f"lm reduced[{arch}] temperature {temp}", got,
+                           want)
         argv = ["--arch", arch, "--requests", "3", "--new-tokens", "4",
                 "--batch", "2"]
         if arch == LM_ARCH:
@@ -2704,7 +2870,22 @@ def phase_lm(torch, dev, card):
         if f"{arch}: served 3 reqs / 12 tokens" not in line:
             fail(f"lm reduced {arch}: launcher printed {line!r}")
         print(f"lm reduced[{arch}]: prefill + decode within "
-              f"{max(errs):.2e} of the forward (gate 5e-4) | launcher: {line}")
+              f"{max(errs):.2e} of the forward (gate 5e-4) | graphed tokens "
+              f"equal eager ({', '.join(f'temperature {t}' for _, t in cases)}"
+              f") | launcher (graphed): {line}")
+    # the quantized-LM example, graphed by default as the launcher
+    from repro_torch.examples import serve_quantized_lm
+
+    out = io.StringIO()
+    with redirect_stdout(out):
+        serve_quantized_lm.main(["--q115", "--requests", "3",
+                                 "--new-tokens", "4"])
+    lines = [ln for ln in out.getvalue().splitlines() if "served" in ln]
+    if not lines or "served 3 requests, 12 new tokens" not in lines[0]:
+        fail(f"lm example: serve_quantized_lm printed {out.getvalue()!r}")
+    print(f"lm example (graphed): {lines[0].strip()}")
+    print(f"lm: phase 11 took {time.perf_counter() - t_phase:.1f} s | on "
+          f"{card}")
 
 
 # --------------------------------------------------------------------------

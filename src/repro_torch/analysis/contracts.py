@@ -24,7 +24,9 @@ The port of the reference's ``repro.analysis.contracts``, with its names:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import threading
 from typing import Any, Callable, Iterable, Mapping, Sequence
 
@@ -51,6 +53,23 @@ def note_capture() -> None:
     with _lock:
         for det in _active_detectors:
             det._backend_compiles += 1
+
+
+@contextlib.contextmanager
+def no_collection():
+    """The garbage collector off around a capture.  A graph that a
+    collection tears down while another is being captured makes a call
+    that is illegal during a capture, and the capture fails; PyTorch no
+    longer collects before capturing, so a dropped engine or trainer in a
+    reference cycle could be torn down there.  Every capture site of the
+    port wraps its ``torch.cuda.graph`` block in this."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
 
 
 def _cache_size(fn: Any) -> int | None:

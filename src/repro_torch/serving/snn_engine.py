@@ -961,7 +961,7 @@ class SNNStreamEngine:
             )
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with contracts.no_collection(), torch.cuda.graph(graph):
             self._stage(self._ring, self._meta, ins["slot"], ins["x"],
                         uniforms=ins.get("uniforms"))
         return graph
@@ -1169,7 +1169,7 @@ class SNNStreamEngine:
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = chunk_mod.snn_chunk.captured
-        with torch.cuda.graph(graph):
+        with contracts.no_collection(), torch.cuda.graph(graph):
             self._chunk(
                 self._prepared, self._states, self._ring, self._meta,
                 self._stats,

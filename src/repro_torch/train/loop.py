@@ -256,7 +256,7 @@ class StaticStep:
                             None)
             cur.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with contracts.no_collection(), torch.cuda.graph(graph):
                 entry["metrics"] = self._body(entry["inputs"])
             entry["graph"] = graph
         self.captures += 1

@@ -1,6 +1,6 @@
 """The port's static analysis: per-rule lint fixtures of ``torchlint`` (the
 counterpart of the reference's ``jaxlint``) in CUDA graph terms, the
-suppression syntax, hazards planted in the three real graph bodies, the
+suppression syntax, hazards planted in the five real graph bodies, the
 Hopper kernel budgets with and without a ``ptxas`` report, the repo-wide
 zero-findings invariant and the ``python -m repro_torch.analysis`` CLI,
 which loads no JAX."""
@@ -332,12 +332,15 @@ def test_rules_table_covers_emitted_codes():
 # --------------------------------------------- the real graph bodies' hazards
 ENGINE = ROOT / "src" / "repro_torch" / "serving" / "snn_engine.py"
 LOOP = ROOT / "src" / "repro_torch" / "train" / "loop.py"
+LM_ENGINE = ROOT / "src" / "repro_torch" / "serving" / "engine.py"
 
 
 def test_the_real_graph_bodies_are_found():
-    res = lint_paths([ENGINE, LOOP], rel_to=ROOT)
+    res = lint_paths([ENGINE, LOOP, LM_ENGINE], rel_to=ROOT)
     assert res.findings == []
     assert sorted(res.graph_bodies) == [
+        "src/repro_torch/serving/engine.py::ServeEngine._decode_body",
+        "src/repro_torch/serving/engine.py::ServeEngine._prefill_body",
         "src/repro_torch/serving/snn_engine.py::SNNStreamEngine._chunk",
         "src/repro_torch/serving/snn_engine.py::SNNStreamEngine._stage",
         "src/repro_torch/train/loop.py::StaticStep._body",
@@ -361,6 +364,17 @@ _HAZARDS = {
         ENGINE, "    def steady_state_recompiles(self) -> int:\n",
         "    def _reset_ring(self) -> None:\n"
         "        self._ring = self._alloc_ring(self._ring_steps)\n\n", "RL104"),
+    "item_in_lm_decode": (
+        LM_ENGINE, "        logits, _ = self.model.decode_step(self.params, token, pos, cache)\n",
+        "        n = pos.max().item()\n", "RL102"),
+    "branch_in_lm_prefill": (
+        LM_ENGINE, "        logits, new = self.model.prefill(self.params, batch, self.cache_len)\n",
+        "        if logits.isnan().any():\n            logits = logits + 0\n",
+        "RL103"),
+    "lm_params_rebound_without_dropping_graphs": (
+        LM_ENGINE, "    def _graph_pool(self):\n",
+        "    def _swap(self, params) -> None:\n"
+        "        self.params = params\n\n", "RL104"),
     "state_rebound_without_dropping_graphs": (
         LOOP, "    def _export(self, step: int) -> TrainState:\n",
         "    def _swap(self, state) -> None:\n"
@@ -544,7 +558,7 @@ def test_cli_exits_zero_and_writes_json(tmp_path):
     doc = json.loads(out.read_text())
     assert doc["schema"] == "repro-torch-analysis/v1"
     assert doc["counts"]["findings"] == 0 and doc["counts"]["new"] == 0
-    assert len(doc["graph_bodies"]) == 3
+    assert len(doc["graph_bodies"]) == 5
 
 
 def test_cli_baseline_accepts_known_findings(tmp_path, capsys):
