@@ -195,11 +195,31 @@ Phases, in order; any failure exits non-zero:
    ``python -m repro_torch.launch.train --arch stablelm-1.6b --reduced
    --steps 3`` in a process: ``final:`` and ``captures 1, graph replays
    3``.
+14. (Runs after 12, before the table.)  Slot sharding and the pipeline
+   (``repro_torch.distributed``): ``SNNStreamEngine`` at the collision
+   network's full width (4096-512-2, T = 25, Tc = 5, 8 slots,
+   ``backend="fused"``, graphed) unsharded, with a ``Mesh`` of ``cuda:0``
+   twice (``("data",)``: 2 shards x 4 slots) and four times (4 x 2), each
+   on phase 4's 48 requests.  Every result equals the unsharded graph
+   engine's in every field; ``snn_chunk`` launches = shards x dispatched
+   ticks (each shard's graph replayed every tick, one launch a replay)
+   plus one warm-up launch a capture; tick captures = shards, admission
+   captures = the (shard, kind, T) signatures, covering every (kind, T);
+   a second serve captures nothing and equals the first on the spike
+   requests; no retry, no demotion, no re-capture.  Prints ms/tick of a
+   captured serve of 1, 2 and 4 shards, three runs each in turns
+   (ungated), beside phase 4's.  A snapshot taken after 6 ticks on 2
+   shards restores into a 1-shard and a 4-shard engine, each finishing
+   equal to the uninterrupted run; 3 slots over 2 shards raise
+   ``ValueError`` naming ``num_slots``.  ``pipeline_forward`` over a
+   4-stage mesh of ``cuda:0`` (``tanh(x @ w)``, d = 2048, 8 microbatches
+   of 4, float32, TF32 off) within 1e-5 of the sequential composition.
 13. Prints the kernel table as one JSON line (the aer row also carries
    the sparse and layer-1 times, every phase-5 case, phase 6's graph
    counts and the inference launches of phase 10; the snn_chunk row phase 10's DVS and tuned-C
-   cases; the lif row its second form and floor; the q115 row each shape
-   and saturation), then ``{"ok": true, ...}`` as the last line.
+   cases and phase 14's launches on 2 and 4 shards; the lif row its
+   second form and floor; the q115 row each shape and saturation), then
+   ``{"ok": true, ...}`` as the last line.
 
 There is no CPU fallback: without a CUDA device the script exits 2.
 """
@@ -680,17 +700,14 @@ def steady_admission(torch, eng, reqs):
     return len(reqs)
 
 
-def phase_main(torch, dev, params_np, card):
-    """Phase 4: the serving engine on the card, its tick a CUDA graph
-    replay through the kernel."""
+def main_requests():
+    """Phase 4's requests: 32 collision images (T = 25) and 16 spike
+    trains of the collision frames with ragged windows (5-25 steps)."""
     import numpy as np
 
     from repro_torch.configs.collision_snn import CONFIG
-    from repro_torch.core import snn
-    from repro_torch.obs import dispatch_attribution
-    from repro_torch.serving.snn_engine import SNNStreamEngine, StreamRequest
+    from repro_torch.serving.snn_engine import StreamRequest
 
-    params = snn.params_from_numpy(params_np, dev)
     K = CONFIG.layer_sizes[0]
     rng = np.random.default_rng(SEED + 2)
     img_reqs = [StreamRequest(image=x) for x in images(32, SEED + 2)]
@@ -703,6 +720,21 @@ def phase_main(torch, dev, params_np, card):
         )
         for x, T in zip(px, steps)
     ]
+    return img_reqs, spike_reqs
+
+
+def phase_main(torch, dev, params_np, card):
+    """Phase 4: the serving engine on the card, its tick a CUDA graph
+    replay through the kernel."""
+    import numpy as np
+
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.core import snn
+    from repro_torch.obs import dispatch_attribution
+    from repro_torch.serving.snn_engine import SNNStreamEngine
+
+    params = snn.params_from_numpy(params_np, dev)
+    img_reqs, spike_reqs = main_requests()
 
     def engine(backend, **kw):
         return SNNStreamEngine(params, CONFIG, num_slots=SLOTS,
@@ -765,7 +797,9 @@ def phase_main(torch, dev, params_np, card):
     # the same requests again on the same engine: every signature is
     # captured, so admission is replays only
     t_again = time.perf_counter()
+    ticks1 = eng.dispatched_ticks
     again, wall2, _ = serve(eng)
+    ms_tick_captured = wall2 / (eng.dispatched_ticks - ticks1) * 1e3
     if eng.admit_captures != len(sigs) or eng.steady_state_recompiles():
         fail(f"admission re-captured on a second serve: "
              f"{eng.admit_captures} captures for {len(sigs)} signatures, "
@@ -872,6 +906,7 @@ def phase_main(torch, dev, params_np, card):
     rate_nj = statistics.mean(r.energy_pj for r in results[:len(img_reqs)]) / 1e3
     return {"launches": launches, "wall_s": wall,
             "ticks": eng.dispatched_ticks, "busy": busy,
+            "ms_tick_captured": ms_tick_captured,
             "rate_coded": {"ms_tick": wall / eng.dispatched_ticks * 1e3,
                            "req_s": len(results) / wall,
                            "events_s": events / wall, "energy_nj": rate_nj}}
@@ -3185,6 +3220,184 @@ def phase_lm_train(torch, dev, card):
     return full
 
 
+def phase_sharded(torch, dev, params_np, card, main_run):
+    """Phase 14: the engine's slot sharding (``mesh=``) at full width on
+    one card, a mesh of ``cuda:0`` repeated, held against the unsharded
+    graph engine; the elastic snapshot; the GPipe pipeline."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs.collision_snn import CONFIG
+    from repro_torch.core import snn
+    from repro_torch.distributed.partitioning import Mesh
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.serving.snn_engine import SNNStreamEngine
+
+    t_phase = time.perf_counter()
+    params = snn.params_from_numpy(params_np, dev)
+    img_reqs, spike_reqs = main_requests()
+    reqs = img_reqs + spike_reqs
+    here = torch.device("cuda", torch.cuda.current_device())
+
+    def engine(shards):
+        return SNNStreamEngine(
+            params, CONFIG, num_slots=SLOTS, chunk_steps=TC, backend="fused",
+            device=dev,
+            mesh=None if shards == 1 else Mesh([here] * shards, ("data",)))
+
+    def fields(r):  # every field but the clocks
+        return (r.request_id, r.prediction, r.steps, r.spike_rate,
+                r.energy_pj, r.spike_counts.tolist(),
+                r.events_per_layer.tolist(), r.disposition, r.fault,
+                r.parked, r.deadline_missed)
+
+    sigs = {("spikes" if r.spikes is not None else "image",
+             r.num_steps or CONFIG.num_steps) for r in reqs}
+    n_img = len(img_reqs)
+    want, launches = None, {}
+    for shards in (1, 2, 4):
+        name = f"sharded[{shards} shard{'s' if shards > 1 else ''}]"
+        eng = engine(shards)
+        results, wall, eager = serve_counted(torch, eng, reqs)
+        ticks, per = eng.dispatched_ticks, eng.graph_launches_per_replay
+        if len(eng._shards) != shards or not eng.graphed or per != 1:
+            fail(f"{name}: {len(eng._shards)} shards, graphed {eng.graphed}, "
+                 f"{per} snn_chunk launch(es) a replay")
+        if eng.graph_replays != shards * ticks:
+            fail(f"{name}: {eng.graph_replays} replays for {ticks} ticks")
+        if not eager == eng.graph_captures == shards:
+            fail(f"{name}: {eng.graph_captures} tick captures and {eager} "
+                 f"warm-up launches; one a shard expected")
+        launches[shards] = eager + per * eng.graph_replays
+        if launches[shards] != shards * ticks + shards:
+            fail(f"{name}: {launches[shards]} snn_chunk launches != "
+                 f"{shards} x {ticks} ticks + {shards} warm-ups")
+        by_shard = collections.defaultdict(set)
+        for i, kind, T, _ in eng._admit_signatures:
+            by_shard[i].add((kind, T))
+        if (eng.admit_captures != len(eng._admit_signatures)
+                or sorted(by_shard) != list(range(shards))
+                or set().union(*by_shard.values()) != sigs):
+            fail(f"{name}: {eng.admit_captures} admission captures of "
+                 f"{len(eng._admit_signatures)} (shard, kind, T) signatures "
+                 f"over shards {sorted(by_shard)}")
+        if eng.steady_state_recompiles():
+            fail(f"{name}: {eng.steady_state_recompiles()} re-captures")
+        check_no_retries(name, eng)
+        got = [fields(r) for r in results]
+        if want is None:
+            want = got  # the unsharded graph engine
+        elif got != want:
+            bad = [a[0] for a, b in zip(got, want) if a != b]
+            fail(f"{name}: requests {bad} differ from the unsharded engine")
+        captures = (eng.graph_captures, eng.admit_captures)
+        replays = eng.graph_replays
+        again, wall2, _ = serve_counted(torch, eng, reqs)
+        if ((eng.graph_captures, eng.admit_captures) != captures
+                or eng.steady_state_recompiles()):
+            fail(f"{name}: a second serve captured: {captures} -> "
+                 f"{(eng.graph_captures, eng.admit_captures)}")
+        if [fields(r)[1:] for r in again[n_img:]] != [
+                a[1:] for a in want[n_img:]]:
+            fail(f"{name}: the second serve differs on spike requests")
+        print(f"{name}: {len(results)} requests equal the unsharded graph "
+              f"engine in every field | {ticks} ticks, {replays} "
+              f"replays ({shards} a tick) + {eager} warm-up = "
+              f"{launches[shards]} snn_chunk launches | captures: {shards} "
+              f"tick, {eng.admit_captures} admission over "
+              f"{len(sigs)} (kind, T); a second serve 0 | "
+              f"{wall / ticks * 1e3:.3f} ms/tick cold, "
+              f"{wall2 / (eng.dispatched_ticks - ticks) * 1e3:.3f} captured "
+              f"| on {card}")
+
+    spread = {1: [], 2: [], 4: []}
+    phases = {1: [], 2: [], 4: []}  # a captured serve's tick_breakdown
+    for shards in (4, 2, 1, 1, 2, 4, 2, 4, 1):
+        eng = engine(shards)
+        serve_counted(torch, eng, reqs)
+        ticks = eng.dispatched_ticks
+        eng.reset_tick_stats()
+        wall = serve_counted(torch, eng, reqs)[1]
+        spread[shards].append(round(wall / (eng.dispatched_ticks - ticks)
+                                    * 1e3, 3))
+        tb = eng.tick_breakdown()
+        phases[shards].append([round(tb[k], 1) for k in (
+            "host_prep_us", "dispatch_us", "stats_fetch_us")])
+    print(f"sharded: ms/tick of a captured serve (48 requests), three runs "
+          f"each in turns, not gated: {json.dumps(spread)} | phase 4's "
+          f"captured serve {main_run['ms_tick_captured']:.3f} ms/tick (PR 21: "
+          f"0.778-1.156) | on {card}")
+    print(f"sharded: the same serves' mean tick in us [host_prep, dispatch "
+          f"(the shards' replays and stats copies), stats_fetch]: "
+          f"{json.dumps(phases)} | on {card}")
+
+    # a snapshot taken mid-serve on 2 shards restores into 1 and 4
+    snap_root = ROOT / "build" / "smoke_snapshots"
+    shutil.rmtree(snap_root, ignore_errors=True)
+    src = engine(2)
+    for r in reqs:
+        src.submit(r)
+    early = []
+    for _ in range(6):
+        early += src.poll()
+    resident = sum(r is not None for r in src._slot_req)
+    path = src.snapshot(str(snap_root / "sharded"))
+    whole = {a[0]: a for a in want}
+    for shards in (1, 4):
+        dst = engine(shards)
+        dst.restore(path)
+        got = {r.request_id: fields(r) for r in early + dst.drain()}
+        if got != whole:
+            bad = sorted(k for k in whole if got.get(k) != whole[k])
+            fail(f"sharded snapshot 2 -> {shards}: requests {bad} differ from "
+                 f"the uninterrupted run")
+        check_no_retries(f"sharded snapshot 2 -> {shards}", dst)
+    shutil.rmtree(snap_root, ignore_errors=True)
+    print(f"sharded: a snapshot after 6 ticks on 2 shards ({resident} "
+          f"windows resident, {len(early)} delivered) restored into 1 and 4 "
+          f"shards: both finish equal to the uninterrupted run in every "
+          f"field | on {card}")
+    try:
+        SNNStreamEngine(params, CONFIG, num_slots=3, chunk_steps=TC,
+                        backend="fused", mesh=Mesh([here] * 2, ("data",)))
+    except ValueError as err:
+        if "num_slots=3" not in str(err):
+            fail(f"sharded: 3 slots over 2 shards raised without naming "
+                 f"num_slots: {err}")
+    else:
+        fail("sharded: 3 slots over 2 shards did not raise")
+    print("sharded: 3 slots over 2 shards raise ValueError naming num_slots")
+
+    # GPipe over a 4-stage mesh of the card, against the composition
+    S, M, mb, d = 4, 8, 4, 2048
+    rng = np.random.default_rng(SEED + 14)
+    w = torch.from_numpy(rng.normal(0, d ** -0.5, (S, d, d)).astype(
+        np.float32)).to(dev)
+    xs = torch.from_numpy(rng.normal(0, 1, (M, mb, d)).astype(
+        np.float32)).to(dev)
+    pipe = pipeline_forward(lambda p, x: torch.tanh(x @ p),
+                            Mesh([here] * S, ("pipe",)), "pipe")
+    got = pipe(w, xs)
+
+    def compose(x):
+        for s in range(S):
+            x = torch.tanh(x @ w[s])
+        return x
+
+    ref = torch.stack([compose(xs[m]) for m in range(M)])
+    err = float((got - ref).abs().max())
+    if got.shape != xs.shape or not err <= 1e-5:
+        fail(f"pipeline: {tuple(got.shape)}, max abs error {err} from the "
+             f"sequential composition (limit 1e-5)")
+    print(f"pipeline: {S} stages on a mesh of {here} x {S}, {M} microbatches "
+          f"of {mb} x {d}, tanh(x @ w) float32 (TF32 off): max abs error "
+          f"{err:.3g} from the sequential composition (limit 1e-5) | "
+          f"phase 14 took {time.perf_counter() - t_phase:.1f} s | on {card}")
+    return {"launches": {str(k): v for k, v in launches.items() if k > 1},
+            "ms_tick": spread}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -3246,6 +3459,8 @@ def main() -> int:
     phase_lm(torch, dev, card)
     # 12. the LM zoo's training path (no kernel of the table on it either)
     phase_lm_train(torch, dev, card)
+    # 14. slot sharding over a mesh of the card; the GPipe pipeline
+    sharded = phase_sharded(torch, dev, params_np, card, main_run)
 
     odd = collections.Counter(x for x in RECORD_OFFSETS if x)
     print(f"profiler: {sum(odd.values())} of {len(RECORD_OFFSETS)} kernel "
@@ -3271,6 +3486,7 @@ def main() -> int:
         "bound_by": kern["bound_by"],
         "library_ms": None,
         "cases": events["cases"],
+        "launches_sharded": sharded["launches"],
     }, {
         "name": "aer_spike_matmul_batched",
         "route": "cuda",

@@ -28,7 +28,11 @@ RL104    rebinding an attribute that a captured graph reads
          host value), so the rebinding silently never reaches a replay.
          ``__init__`` and methods that drop a graph (set its holder to
          ``None``, or ``clear``/``pop``/``del`` it) are the allocation
-         and growth sites where a rebinding is right.
+         and growth sites where a rebinding is right.  A graph may read
+         and hold through a record the instance keeps (the engine's slot
+         shards: ``shard._ring`` in a capture block, ``shard._graph =
+         graph``): such attributes are read and held by name, as
+         ``self.X`` is.
 RL105    a donated argument read after the donating call bound its
          result, before being rebound: the port donates by updating in
          place, so the name now holds the call's new value, not the one
@@ -192,6 +196,18 @@ def _self_attr(node: ast.AST) -> str | None:
     """``self.X`` (or ``self.X.y...``) -> "X"; else None."""
     while isinstance(node, ast.Attribute):
         if isinstance(node.value, ast.Name) and node.value.id == "self":
+            return node.attr
+        node = node.value
+    return None
+
+
+def _held_attr(node: ast.AST) -> str | None:
+    """``self.X`` or ``obj.X`` (or ``....y``) -> "X": an attribute of the
+    class's instance or of a record it keeps (a serving engine's slot
+    shard holds buffers and graphs as ``shard._ring``, ``shard._graph``);
+    else None."""
+    while isinstance(node, ast.Attribute):
+        if isinstance(node.value, ast.Name):
             return node.attr
         node = node.value
     return None
@@ -524,10 +540,10 @@ class _Linter:
                     if isinstance(t, ast.Name):
                         local.add(t.id)
                     elif isinstance(t, ast.Subscript):
-                        if _self_attr(t.value):
-                            holders.add(_self_attr(t.value))
-                    elif _self_attr(t):
-                        holders.add(_self_attr(t))
+                        if _held_attr(t.value):
+                            holders.add(_held_attr(t.value))
+                    elif _held_attr(t):
+                        holders.add(_held_attr(t))
         return holders
 
     @staticmethod
@@ -539,15 +555,15 @@ class _Linter:
                 isinstance(value, ast.Constant) and value.value is None)
             if empty and any(
                     isinstance(t, ast.Attribute) and isinstance(t.value, ast.Name)
-                    and t.value.id == "self" and t.attr in holders
+                    and t.attr in holders
                     for t in _flat_targets(_stores(n))):
                 return True
             if (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
                     and n.func.attr in ("clear", "pop")
-                    and _self_attr(n.func.value) in holders):
+                    and _held_attr(n.func.value) in holders):
                 return True
             if isinstance(n, ast.Delete) and any(
-                    _self_attr(t) in holders for t in n.targets):
+                    _held_attr(t) in holders for t in n.targets):
                 return True
         return False
 
@@ -558,9 +574,10 @@ class _Linter:
         for block, _ in sc.blocks:
             for stmt in block.body:
                 for n in ast.walk(stmt):
-                    a = _self_attr(n) if isinstance(n, ast.Attribute) else None
-                    if a and isinstance(n.value, ast.Name):
-                        read.add(a)
+                    # self.X, or X of a record the instance keeps (a shard)
+                    if (isinstance(n, ast.Attribute)
+                            and isinstance(n.value, ast.Name)):
+                        read.add(n.attr)
         for fn in sc.bodies.values():
             if sc.methods.get(fn.name) is not fn:
                 continue

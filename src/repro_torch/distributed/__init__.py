@@ -1,7 +1,7 @@
-"""Distributed training helpers of the port: gradient compression.  The
-reference's partitioning and pipeline modules wait for multi-device
-sharding."""
+"""Distributed helpers of the port: gradient compression, logical-axis
+partitioning (meshes, specs, the serving engine's slot shards) and the
+GPipe pipeline."""
 
-from repro_torch.distributed import compression
+from repro_torch.distributed import compression, partitioning, pipeline
 
-__all__ = ["compression"]
+__all__ = ["compression", "partitioning", "pipeline"]

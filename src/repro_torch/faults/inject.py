@@ -51,12 +51,13 @@ acceptance test pins.  Every application is recorded in
 injections against the engine's quarantine log and measure recovery
 ticks.
 
-State and ring faults write **in place** into the engine's static
-buffers (``engine._states[l].u[s, 0] = nan``, ``engine._ring["counts"][s,
-off] = -7``), as a CUDA kernel's stray write would.  The engine's CUDA
-graph holds those buffers' addresses: a fault that rebound
-``engine._states`` or ``engine._ring`` to new tensors would never reach
-the replayed chunk, and would vanish without a sign.  On the card the
+State and ring faults write **in place** into the static buffers of
+the slot's shard (``shard._states[l].u[r, 0] = nan``,
+``shard._ring["counts"][r, off] = -7`` at the slot's row ``r``; an
+unsharded engine is its one shard), as a CUDA kernel's stray write
+would.  The shard's CUDA graph holds those buffers' addresses: a fault
+that rebound the states or the ring to new tensors would never reach the
+replayed chunk, and would vanish without a sign.  On the card the
 write is a small fill ordered on the current stream, ahead of the next
 replay.
 
@@ -322,12 +323,14 @@ class FaultInjector:
     # ----------------------------------------------------- applications
     @staticmethod
     def _apply_nan_membrane(engine, s: int, layer: int) -> None:
-        layer = min(layer, len(engine._states) - 1)
-        engine._states[layer].u[s, 0] = float("nan")
+        sh, r = engine._where[s]  # the slot's shard and row in it
+        layer = min(layer, len(sh._states) - 1)
+        sh._states[layer].u[r, 0] = float("nan")
 
     @staticmethod
     def _apply_corrupt_ring(engine, s: int) -> None:
         # impossible per-step event count at the slot's next read
         # offset: the chunk window starting at ``done`` must see it
         off = int(engine._slot_done[s])
-        engine._ring["counts"][s, off] = -7
+        sh, r = engine._where[s]
+        sh._ring["counts"][r, off] = -7

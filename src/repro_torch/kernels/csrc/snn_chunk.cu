@@ -419,17 +419,23 @@ template <typename AddrT, typename ValT>
 static cudaError_t launch(const ChunkParams& p, int threads, int smem,
                           cudaStream_t stream) {
   auto kernel = snn_chunk_kernel<AddrT, ValT>;
-  // Raise the kernel's dynamic shared-memory limit at the first launch that
-  // needs more, not before every launch: a launch recorded into a CUDA graph
-  // then makes no call but the launch itself (the serving engine runs each
-  // shape once eagerly before it captures it).
-  static int smem_set = 0;
-  cudaError_t err;
-  if (smem > smem_set) {
+  // Raise the kernel's dynamic shared-memory limit at the first launch on a
+  // device that needs more, not before every launch: a launch recorded into
+  // a CUDA graph then makes no call but the launch itself (the serving
+  // engine runs each shape once eagerly on each device before it captures
+  // it).  The limit is a property of the device's context, so it is kept a
+  // device (a sharded engine launches on each of its shards' cards).
+  constexpr int kMaxDevices = 64;
+  static int smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > smem_set[dev]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    smem_set = smem;
+    smem_set[dev] = smem;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.batch * SNN_CLUSTER);

@@ -100,6 +100,22 @@ The core of ``repro.serving.snn_engine.SNNStreamEngine``:
   graph keeps it.  ``snapshot_auto``/``restore_latest_snapshot`` add a
   keep-N rotation with corrupt-snapshot fallback.  A snapshot directory
   written by the reference engine restores into the port.
+- **Sharded slots** (``mesh=`` a ``distributed.partitioning.Mesh``).  The
+  slot axis splits over the mesh's ``slot`` rule axes (``pod``/``data``)
+  into ``n`` shards of ``S/n`` consecutive slots, as the reference's
+  ``shard_map`` over ``P(slot)`` does.  Each shard keeps its own buffers
+  on its own device: the prepared params (one copy a distinct device),
+  states, metadata, stats, ring, pinned staging, its tick graph and its
+  admission graphs.  A tick replays (or runs) every shard's chunk over its
+  own slots, and the shards' stats are copied section by section into one
+  host buffer in global slot order, so retirement reads them as it reads
+  an unsharded engine's.  The host bookkeeping (queue, slots, results) is
+  global.  Mesh axes outside the slot rule hold replicas in the
+  reference; here each shard is computed once, on the first device of its
+  replica group.  The unsharded engine is the one-shard case of the same
+  code, and keeps its buffers under their names (``engine._ring``, ...);
+  a sharded engine's are ``engine._shards[i]._ring``.  Snapshots are host
+  arrays in global slot order, so they restore across mesh shapes.
 
 Entry points run on the card: ``device=None`` means ``cuda`` and raises
 when no GPU is present; pass ``device="cpu"`` explicitly to run on the CPU.
@@ -108,6 +124,7 @@ when no GPU is present; pass ``device="cpu"`` explicitly to run on the CPU.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import heapq
 import os
@@ -127,6 +144,7 @@ from repro_torch.checkpoint.manager import (
     publish_array_dir,
 )
 from repro_torch.core import coding, energy, neuron, snn
+from repro_torch.distributed import partitioning
 from repro_torch.events import aer, runtime
 from repro_torch.events import capacity as cap_mod
 from repro_torch.faults import shedding as shed_mod
@@ -161,6 +179,14 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly"
         )
+    return dev
+
+
+def _canonical(device) -> torch.device:
+    """``device`` as its tensors report it (``cuda`` is ``cuda:<current>``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -266,6 +292,57 @@ def _seed_from_key(key: np.ndarray) -> int:
     return seed
 
 
+class _SlotShard:
+    """Slots ``[lo, hi)`` of an engine and what the device holds for them:
+    the prepared params, the chunk's static buffers (per-layer states,
+    metadata, stats, the ring), the pinned staging, the tick graph and the
+    admission graphs.  A record the engine fills and reads; every buffer is
+    indexed by the shard's local slot ``s - lo``."""
+
+    def __init__(self, index: int, lo: int, hi: int, device: torch.device):
+        self.index, self.lo, self.hi, self.device = index, lo, hi, device
+        self.n = hi - lo
+        self._prepared: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._states: List[neuron.NeuronState] = []
+        self._meta: Dict[str, torch.Tensor] = {}
+        self._stats: Optional[torch.Tensor] = None
+        self._ring: Dict[str, torch.Tensor] = {}
+        self._slot_ids: Optional[torch.Tensor] = None  # local ids 0..n-1
+        self._pinned: List[torch.Tensor] = []
+        self._pinned_ready: List[torch.cuda.Event] = []
+        self._graph = None
+        # (kind, T) -> the admission graph at this ring size and its
+        # static inputs (``_capture_admit``)
+        self._admit_graphs: Dict[Tuple[str, int], Dict] = {}
+
+
+def _one_shard(name: str, doc: str) -> property:
+    """An engine attribute that is its one shard's ``name``: the unsharded
+    engine's buffers and graphs under the names they always had.  On a
+    sharded engine they are per shard (``engine._shards[i].<name>``), and
+    reading them through the engine raises."""
+
+    def shard(self) -> _SlotShard:
+        if len(self._shards) != 1:
+            raise AttributeError(
+                f"{name} is per shard on an engine of {len(self._shards)} "
+                f"slot shards: read engine._shards[i].{name}"
+            )
+        return self._shards[0]
+
+    return property(lambda self: getattr(shard(self), name),
+                    lambda self, value: setattr(shard(self), name, value),
+                    doc=doc)
+
+
+def _on(device: torch.device):
+    """The device's context for work queued on a shard (its current
+    stream); nothing on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 class SNNStreamEngine:
     """EDF scheduler over device-resident event rings and the chunk
     runtime.
@@ -275,8 +352,19 @@ class SNNStreamEngine:
     nothing on the CPU or for the plain-version backends, which always
     run eagerly.  ``admission``, ``fault_checks``, ``injector``, ``retry``
     and ``preempt`` are the reference engine's fault-tolerance knobs (see
-    the module docstring).
+    the module docstring).  ``mesh`` shards the slots (see the module
+    docstring); with a mesh, ``device=None`` means the mesh's first
+    device.
     """
+
+    # the unsharded engine's buffers and graphs, under their old names
+    _prepared = _one_shard("_prepared", "The prepared params.")
+    _states = _one_shard("_states", "Per-layer membrane/refractory state.")
+    _meta = _one_shard("_meta", "done / total / admit / fault per slot.")
+    _stats = _one_shard("_stats", "The chunk's per-slot stats vector.")
+    _ring = _one_shard("_ring", "The per-slot event rings.")
+    _graph = _one_shard("_graph", "The tick's CUDA graph, or None.")
+    _admit_graphs = _one_shard("_admit_graphs", "(kind, T) -> admission graph.")
 
     def __init__(
         self,
@@ -299,8 +387,24 @@ class SNNStreamEngine:
         retry: Optional[RetryPolicy] = None,
         preempt: bool = False,
         device=None,
+        mesh: Optional[partitioning.Mesh] = None,
     ):
+        if mesh is not None and device is None:
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # (lo, hi, device) of each slot shard; raises ValueError naming
+        # num_slots when the slots do not divide over the mesh's slot axes
+        blocks = (
+            [(0, num_slots, self.device)] if mesh is None
+            else partitioning.slot_shards(num_slots, mesh)
+        )
+        for _, _, d in blocks:
+            if resolve_device(d).type != self.device.type:
+                raise ValueError(
+                    f"mesh device {d} is not of the engine's device type "
+                    f"{self.device.type!r}"
+                )
         self.cfg = cfg
         self.S = num_slots
         self.Tc = chunk_steps
@@ -342,14 +446,39 @@ class SNNStreamEngine:
             name: {k: v.to(self.device) for k, v in lp.items()}
             for name, lp in params.items()
         }
-        # prepare (fake-quantize) once, never per chunk
-        self._prepared = runtime.prepare_params(self.params, cfg)
         self.C = cap_mod.input_capacity(cfg, self.capacities)
         self._addr_dtype = aer.addr_dtype_for(cfg.layer_sizes[0])
         self._ring_steps = max(int(cfg.num_steps), chunk_steps)
-        self._step_ids = torch.arange(chunk_steps, device=self.device)
-        self._slot_ids = torch.arange(num_slots, device=self.device)
-        self._lane_ids = torch.arange(self.C, device=self.device)
+        # the chunk's index constants on each device that holds a shard:
+        # slot ids 0..S-1 (a shard reads the first n), step ids, lane ids;
+        # keyed by the device as its tensors report it
+        home = _canonical(self.device)
+        self._consts: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+        for d in [home] + [_canonical(d) for _, _, d in blocks]:
+            if d not in self._consts:
+                self._consts[d] = (
+                    torch.arange(num_slots, device=d),
+                    torch.arange(chunk_steps, device=d),
+                    torch.arange(self.C, device=d),
+                )
+        self._slot_ids = self._consts[home][0]
+        # prepare (fake-quantize) once, never per chunk; one copy a device
+        prepared = runtime.prepare_params(self.params, cfg)
+        by_device = {home: prepared}
+        self._shards: List[_SlotShard] = []
+        for i, (lo, hi, d) in enumerate(blocks):
+            sh = _SlotShard(i, lo, hi, _canonical(d))
+            if sh.device not in by_device:
+                by_device[sh.device] = {
+                    name: {k: v.to(sh.device) for k, v in lp.items()}
+                    for name, lp in prepared.items()
+                }
+            sh._prepared = by_device[sh.device]
+            sh._slot_ids = self._consts[sh.device][0][:sh.n]
+            self._shards.append(sh)
+        # global slot -> (its shard, its row in the shard's buffers)
+        self._where = [(sh, s - sh.lo) for sh in self._shards
+                       for s in range(sh.lo, sh.hi)]
         # the tick as a CUDA graph: fused kernel on the card only
         self.graphed = (
             bool(cuda_graph) and self.device.type == "cuda"
@@ -361,17 +490,18 @@ class SNNStreamEngine:
             from repro_torch.kernels import _build
 
             _build.load("snn_chunk")
-        self.graph_captures = 0  # lifetime captures
-        self.graph_replays = 0  # lifetime replays (one per graphed tick)
-        self.graph_launches_per_replay = 0  # kernel launches in the graph
-        # capture-site allowlist: the cold-start capture; _grow_ring bumps
-        # it (a new ring is new graph inputs)
-        self._captures_expected = 1
+        self.graph_captures = 0  # lifetime captures (every shard's)
+        self.graph_replays = 0  # lifetime replays (a shard's graph each)
+        self.graph_launches_per_replay = 0  # kernel launches in a graph
+        # capture-site allowlist: each shard's cold-start capture;
+        # _grow_ring bumps it by one a shard (a new ring is new graph
+        # inputs)
+        self._captures_expected = len(self._shards)
         self._captures_accounted = 0
         self.admit_captures = 0  # lifetime admission graph captures
         self.admit_replays = 0  # lifetime admission graph replays
-        # the admission graphs' allowlist: one capture per (kind, T, ring
-        # steps) ever seen; a second capture of one is a re-capture
+        # the admission graphs' allowlist: one capture per (shard, kind, T,
+        # ring steps) ever seen; a second capture of one is a re-capture
         self._admit_signatures: set = set()
         self.dispatched_ticks = 0  # lifetime chunk dispatches
         self._alloc_buffers()
@@ -565,37 +695,57 @@ class SNNStreamEngine:
     # ------------------------------------------------------------- state
     def _alloc_buffers(self) -> None:
         """Allocate the chunk's static buffers and the host staging, once
-        (``_grow_ring`` reallocates the ring; nothing else does)."""
-        cfg, S, dev = self.cfg, self.S, self.device
+        (``_grow_ring`` reallocates the rings; nothing else does), each
+        shard's on its device."""
+        cfg, S = self.cfg, self.S
         NL, L = cfg.layer_sizes[-1], cfg.num_layers
-        # the chunk's static buffers: written in place by every tick
-        self._states = runtime.init_states(cfg, S, device=dev)
-        self._meta = {
-            k: torch.zeros((S,), dtype=torch.int32, device=dev)
-            for k in ("done", "total", "admit", "fault")
-        }
-        self._stats = torch.zeros(
-            (2 * S * NL + S * L + S,), dtype=torch.float32, device=dev
-        )
-        self._ring = self._alloc_ring(self._ring_steps)
+        for sh in self._shards:
+            # the chunk's static buffers: written in place by every tick
+            n, dev = sh.n, sh.device
+            sh._states = runtime.init_states(cfg, n, device=dev)
+            sh._meta = {
+                k: torch.zeros((n,), dtype=torch.int32, device=dev)
+                for k in ("done", "total", "admit", "fault")
+            }
+            sh._stats = torch.zeros(
+                (2 * n * NL + n * L + n,), dtype=torch.float32, device=dev
+            )
+            sh._ring = self._alloc_ring(self._ring_steps, n, dev)
         self._alloc_staging()
         # stats land in one of pipeline_depth + 1 host buffers, each
         # reused only after its chunk retired; pinned on the card, behind
-        # one event each
-        on_card = dev.type == "cuda"
+        # one event a device
+        on_card = self.device.type == "cuda"
         self._host_stats = [
-            torch.zeros(self._stats.shape, dtype=torch.float32,
+            torch.zeros((2 * S * NL + S * L + S,), dtype=torch.float32,
                         pin_memory=on_card)
             for _ in range(self.pipeline_depth + 1)
         ]
+        self._stats_devices = list(dict.fromkeys(
+            sh.device for sh in self._shards))
         self._host_ready = [
-            torch.cuda.Event() if on_card else None for _ in self._host_stats
+            [torch.cuda.Event() for _ in self._stats_devices] if on_card
+            else None
+            for _ in self._host_stats
         ]
         self._host_next = 0
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        # (kind, T) -> the admission graph at this ring size and its
-        # static inputs (``_capture_admit``)
-        self._admit_graphs: Dict[Tuple[str, int], Dict] = {}
+        # each host buffer's copies: (shard, host view, stats view), the
+        # four sections of every shard (spikes, membranes, events, fault;
+        # each slot-major) at their global slot offsets; one copy for a
+        # shard of every slot, whose layout is the global one
+        self._stats_copies = []
+        for host in self._host_stats:
+            copies = []
+            for sh in self._shards:
+                if sh.n == S:
+                    copies.append((sh, host, sh._stats))
+                    continue
+                g = b = 0  # the section's base: global, in the shard
+                for w in (NL, NL, L, 1):
+                    copies.append((sh, host[g + sh.lo * w:g + sh.hi * w],
+                                   sh._stats[b:b + sh.n * w]))
+                    g, b = g + S * w, b + sh.n * w
+            self._stats_copies.append(copies)
 
     def _reset_host(self) -> None:
         """Reset the host-side serving state: slot bookkeeping, the
@@ -664,15 +814,16 @@ class SNNStreamEngine:
     def wall_s(self) -> float:
         return self._m_wall.value
 
-    def _alloc_ring(self, ring_steps: int) -> Dict[str, torch.Tensor]:
+    def _alloc_ring(self, ring_steps: int, n: int,
+                    device) -> Dict[str, torch.Tensor]:
         # Tc steps of zero padding keep every chunk slice inside the ring
         # at every done offset in [0, ring_steps]
-        S, C, dev = self.S, self.C, self.device
+        C, dev = self.C, device
         R = ring_steps + self.Tc
         return {
-            "addrs": torch.zeros((S, R, C), dtype=self._addr_dtype, device=dev),
-            "values": torch.zeros((S, R, C), dtype=torch.int8, device=dev),
-            "counts": torch.zeros((S, R), dtype=torch.int32, device=dev),
+            "addrs": torch.zeros((n, R, C), dtype=self._addr_dtype, device=dev),
+            "values": torch.zeros((n, R, C), dtype=torch.int8, device=dev),
+            "counts": torch.zeros((n, R), dtype=torch.int32, device=dev),
         }
 
     def _alloc_staging(self) -> None:
@@ -682,34 +833,36 @@ class SNNStreamEngine:
         ring row, metadata) for a resume or a restore (``_put_rows``),
         whichever is larger."""
         if self.device.type != "cuda":
-            self._pinned: List[torch.Tensor] = []
-            self._pinned_ready: List[torch.cuda.Event] = []
             return
         rows = sum(-(-v.nbytes // 16) * 16 for v in self._slot_views(0))
         n = max(4 * self._ring_steps * self.cfg.layer_sizes[0], rows)
-        self._pinned = [
-            torch.empty((-(-n // 16) * 16,), dtype=torch.uint8,
-                        pin_memory=True)
-            for _ in range(self.S)
-        ]
-        self._pinned_ready = [torch.cuda.Event() for _ in range(self.S)]
+        for sh in self._shards:
+            sh._pinned = [
+                torch.empty((-(-n // 16) * 16,), dtype=torch.uint8,
+                            pin_memory=True)
+                for _ in range(sh.n)
+            ]
+            with _on(sh.device):
+                sh._pinned_ready = [torch.cuda.Event() for _ in range(sh.n)]
 
     def _grow_ring(self, T: int) -> None:
-        """Grow the rings to hold a T-step train; other slots' staged
-        trains survive.  The new ring is a new graph input: the only
-        allowed re-capture site."""
-        old, r_old = self._ring, self._ring_steps + self.Tc
+        """Grow every shard's ring to hold a T-step train; other slots'
+        staged trains survive.  The new rings are new graph inputs: the
+        only allowed re-capture site, once a shard."""
+        r_old = self._ring_steps + self.Tc
         self._ring_steps = int(T)
-        self._ring = self._alloc_ring(self._ring_steps)
-        for k, buf in self._ring.items():
-            buf[:, :r_old] = old[k]
+        for sh in self._shards:
+            old = sh._ring
+            sh._ring = self._alloc_ring(self._ring_steps, sh.n, sh.device)
+            for k, buf in sh._ring.items():
+                buf[:, :r_old] = old[k]
+            # the admission graphs write the old ring: each (kind, T)
+            # captures again over the new one, a new allowlisted signature
+            sh._admit_graphs.clear()
+            if self.graphed:
+                sh._graph = None
+                self._captures_expected += 1
         self._alloc_staging()
-        # the admission graphs write the old ring: each (kind, T) captures
-        # again over the new one, a new allowlisted signature
-        self._admit_graphs.clear()
-        if self.graphed:
-            self._graph = None
-            self._captures_expected += 1
 
     # --------------------------------------------------------- admission
     def _resolve_steps(self, req: StreamRequest) -> int:
@@ -791,24 +944,38 @@ class SNNStreamEngine:
     def _upload(
         self, s: int, arr: np.ndarray, out: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        """One host->device copy of a float32 array, into ``out`` when
-        given (an admission graph's static input), else a new tensor.  On
-        the card it goes through slot ``s``'s pinned staging buffer, so it
-        does not wait for chunks in flight; the buffer is refilled only
-        after its previous copy's event."""
+        """One host->device copy of a float32 array to slot ``s``'s
+        device, into ``out`` when given (an admission graph's static
+        input), else a new tensor.  On the card it goes through slot
+        ``s``'s pinned staging buffer, so it does not wait for chunks in
+        flight; the buffer is refilled only after its previous copy's
+        event."""
         a = np.asarray(arr, dtype=np.float32)
         if self.device.type != "cuda":
             src = torch.from_numpy(a.copy())
             return src if out is None else out.copy_(src)
-        ready = self._pinned_ready[s]
+        sh, r = self._where[s]
+        ready = sh._pinned_ready[r]
         ready.synchronize()  # the previous copy out of this buffer is done
-        host = self._pinned[s].view(torch.float32)[: a.size].view(a.shape)
+        host = sh._pinned[r].view(torch.float32)[: a.size].view(a.shape)
         host.numpy()[...] = a
-        if out is None:
-            out = torch.empty(a.shape, dtype=torch.float32, device=self.device)
-        out.copy_(host, non_blocking=True)
-        ready.record()
+        with _on(sh.device):
+            if out is None:
+                out = torch.empty(a.shape, dtype=torch.float32,
+                                  device=sh.device)
+            out.copy_(host, non_blocking=True)
+            ready.record()
         return out
+
+    def _draw_uniforms(self, out: torch.Tensor) -> None:
+        """An image's uniforms from the engine's generator into ``out``
+        (an admission graph's static input): the eager engine's draw, in
+        its shape and order, whichever device the shard is on (the
+        generator is on the engine's own device)."""
+        if out.device == self._slot_ids.device:
+            coding.rate_uniforms(self._gen, out.shape, out=out)
+        else:
+            out.copy_(coding.rate_uniforms(self._gen, out.shape, self.device))
 
     def _admit(
         self,
@@ -827,13 +994,15 @@ class SNNStreamEngine:
         if self.graphed:
             self._admit_graphed(s, kind, T, data)
         else:
+            sh, r = self._where[s]
             x = self._upload(s, data)
             u = None
             if kind == "image":
                 u = coding.rate_uniforms(self._gen, (T,) + tuple(x.shape),
-                                         self.device)
-            self._stage(self._ring, self._meta, self._slot_ids[s:s + 1], x,
-                        uniforms=u)
+                                         self.device).to(sh.device)
+            with _on(sh.device):
+                self._stage(sh._ring, sh._meta, sh._slot_ids[r:r + 1], x,
+                            uniforms=u)
         self._slot_req[s] = rid
         self._slot_done[s] = 0
         self._slot_retired[s] = 0
@@ -900,69 +1069,79 @@ class SNNStreamEngine:
     _stage.donate_argnums = (0, 1)
 
     def _admit_graphed(self, s: int, kind: str, T: int, data) -> None:
-        """Stage a request through the admission graph of ``(kind, T)``,
-        capturing it first where this ring size has none: the upload into
-        the graph's static input, an image's uniforms drawn into their
-        static buffer outside the graph (the eager engine's draw, in its
-        shape and order), the slot index set by a device-to-device copy,
-        then one replay.  A failed capture or replay raises."""
-        entry = self._admit_graphs.get((kind, T))
+        """Stage a request into slot ``s`` through its shard's admission
+        graph of ``(kind, T)``, capturing it first where this ring size
+        has none: the upload into the graph's static input, an image's
+        uniforms drawn into their static buffer outside the graph (the
+        eager engine's draw, in its shape and order), the slot's local
+        index set by a device-to-device copy, then one replay.  A failed
+        capture or replay raises."""
+        sh, r = self._where[s]
+        entry = sh._admit_graphs.get((kind, T))
         if entry is None:
-            entry = self._admit_graphs[(kind, T)] = self._capture_admit(kind, T)
+            entry = sh._admit_graphs[(kind, T)] = self._capture_admit(
+                sh, kind, T)
         ins = entry["inputs"]
         self._upload(s, data, out=ins["x"])
-        if kind == "image":
-            coding.rate_uniforms(self._gen, ins["uniforms"].shape,
-                                 out=ins["uniforms"])
-        ins["slot"].copy_(self._slot_ids[s:s + 1])
-        entry["graph"].replay()
+        with _on(sh.device):
+            if kind == "image":
+                self._draw_uniforms(ins["uniforms"])
+            ins["slot"].copy_(sh._slot_ids[r:r + 1])
+            entry["graph"].replay()
         self.admit_replays += 1
 
-    def _capture_admit(self, kind: str, T: int) -> Dict:
-        """The admission graph of requests of ``kind`` over ``T`` steps at
-        this ring size, with its static inputs: the slot index, the (T, K)
-        train or the (K,) image and its (T, K) uniforms.  The first
-        capture of ``(kind, T)`` at a ring size is allowlisted; any other
+    def _capture_admit(self, sh: _SlotShard, kind: str, T: int) -> Dict:
+        """Shard ``sh``'s admission graph of requests of ``kind`` over
+        ``T`` steps at this ring size, with its static inputs (the local
+        slot index, the (T, K) train or the (K,) image and its (T, K)
+        uniforms) and the ring and metadata it writes.  The first capture
+        of ``(shard, kind, T)`` at a ring size is allowlisted; any other
         counts as a re-capture."""
         t0 = time.perf_counter()
-        dev, K = self.device, self.cfg.layer_sizes[0]
-        ins = {"slot": self._slot_ids[:1].clone()}
+        dev, K = sh.device, self.cfg.layer_sizes[0]
+        ins = {"slot": sh._slot_ids[:1].clone(), "ring": sh._ring,
+               "meta": sh._meta}
         if kind == "image":
             ins["x"] = torch.zeros((K,), dtype=torch.float32, device=dev)
             ins["uniforms"] = torch.zeros((T, K), dtype=torch.float32,
                                           device=dev)
         else:
             ins["x"] = torch.zeros((T, K), dtype=torch.float32, device=dev)
-        graph = self._capture_stage(ins)
+        with _on(dev):
+            graph = self._capture_stage(ins)
         self.admit_captures += 1
         contracts.note_capture()
-        self._admit_signatures.add((kind, T, self._ring_steps))
+        self._admit_signatures.add((sh.index, kind, T, self._ring_steps))
         self._note_captures()
         self.trace.span("admit_capture", t0, time.perf_counter(),
-                        track="engine", args={"kind": kind, "steps": T})
+                        track="engine",
+                        args={"kind": kind, "steps": T, "shard": sh.index})
         return {"graph": graph, "inputs": ins}
 
-    def _capture_stage(self, ins: Dict[str, torch.Tensor]):
-        """Capture ``_stage`` over the static inputs ``ins`` and the live
-        ring and metadata into a CUDA graph.  A warm-up call runs first on
-        a side stream over copies of the ring and metadata, so capturing
-        writes no live slot.  The graph takes a memory pool of its own:
-        the tick graph and the admission graphs replay in no fixed
-        order."""
-        dev = self.device
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+    def _capture_stage(self, ins: Dict):
+        """Capture ``_stage`` over the static inputs ``ins`` into the ring
+        and metadata ``ins["ring"]``/``ins["meta"]`` (a shard's live
+        buffers) as a CUDA graph, on the current device.  A warm-up call
+        runs first on a side stream over copies of the ring and metadata,
+        so capturing writes no live slot.  The graph takes a memory pool
+        of its own: the tick graphs and the admission graphs replay in no
+        fixed order."""
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self._stage(
-                {k: v.clone() for k, v in self._ring.items()},
-                {k: v.clone() for k, v in self._meta.items()},
+                {k: v.clone() for k, v in ins["ring"].items()},
+                {k: v.clone() for k, v in ins["meta"].items()},
                 ins["slot"], ins["x"], uniforms=ins.get("uniforms"),
             )
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with contracts.no_collection(), torch.cuda.graph(graph):
-            self._stage(self._ring, self._meta, ins["slot"], ins["x"],
+        # captured on the side stream, of the current device: the graph
+        # context's own default stream belongs to the device that was
+        # current when the process made its first graph
+        with contracts.no_collection(), torch.cuda.graph(graph, stream=side):
+            self._stage(ins["ring"], ins["meta"], ins["slot"], ins["x"],
                         uniforms=ins.get("uniforms"))
         return graph
 
@@ -1069,6 +1248,8 @@ class SNNStreamEngine:
         host read, so a CUDA graph can capture it."""
         cfg, Tc, C = self.cfg, self.Tc, self.C
         done, total, admit = meta["done"], meta["total"], meta["admit"]
+        # the slots' local ids, step and lane ids on the buffers' device
+        slot_ids, step_ids, lane_ids = self._consts[done.device]
         take = torch.clamp(total - done, 0, Tc)
         act = (take > 0).to(torch.float32)
         # slots admitted since the previous chunk start from zero state
@@ -1081,14 +1262,14 @@ class SNNStreamEngine:
             for st in states
         ]
         # each slot's next Tc steps out of its ring, slot-major (S, Tc, C)
-        rows = self._slot_ids[:, None]
-        steps = done[:, None].long() + self._step_ids[None, :]
+        rows = slot_ids[:done.shape[0], None]
+        steps = done[:, None].long() + step_ids[None, :]
         a_c = ring["addrs"][rows, steps]
         v_c = ring["values"][rows, steps]
         c_c = ring["counts"][rows, steps]
         # silence steps past the request's window: there the ring holds a
         # previous occupant's stale events
-        in_window = self._step_ids[None, :] < take[:, None]
+        in_window = step_ids[None, :] < take[:, None]
         values = torch.where(in_window[:, :, None], v_c, 0)
         counts = torch.where(in_window, c_c, 0)
         new_states, out_mem, out_spikes, events = runtime.run_chunk_events(
@@ -1106,7 +1287,7 @@ class SNNStreamEngine:
                 bad_state = bad_state | ~torch.isfinite(st.u).all(dim=-1)
             bad_count = ((counts < 0) | (counts > C)).any(dim=-1)
             ev_valid = in_window[:, :, None] & (
-                self._lane_ids[None, None, :]
+                lane_ids[None, None, :]
                 < torch.clamp(counts, 0, C)[:, :, None]
             )
             a32 = a_c.to(torch.int32)
@@ -1129,7 +1310,7 @@ class SNNStreamEngine:
                 for new in new_states
             ]
         # per-slot stats over the request's own steps only
-        m = (self._step_ids[:, None] < take[None, :]).to(torch.float32)
+        m = (step_ids[:, None] < take[None, :]).to(torch.float32)
         torch.cat([
             torch.sum(out_spikes * m[:, :, None], dim=0).flatten(),
             torch.sum(out_mem * m[:, :, None], dim=0).flatten(),
@@ -1150,32 +1331,38 @@ class SNNStreamEngine:
     _chunk.donate_argnums = (1, 3)
 
     def _capture(self) -> None:
-        """Capture ``_chunk`` over the static buffers into a CUDA graph.
+        """Capture ``_chunk`` into a CUDA graph for every shard that has
+        none (each over its own static buffers, on its own device).
+        Raises if a capture fails; nothing runs eagerly instead."""
+        for sh in self._shards:
+            if sh._graph is None:
+                with _on(sh.device):
+                    self._capture_shard(sh)
+
+    def _capture_shard(self, sh: _SlotShard) -> None:
+        """Capture ``_chunk`` over shard ``sh``'s static buffers.
 
         A warm-up call on copies runs first on a side stream, as
         ``torch.cuda.graph`` requires: it builds the kernel, raises its
         shared-memory limit and fills the plan cache, and leaves the
-        engine's buffers untouched (capture records work, runs none).
-        Raises if the capture fails; nothing runs eagerly instead."""
+        engine's buffers untouched (capture records work, runs none)."""
         from repro_torch.kernels import snn_chunk as chunk_mod
 
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            self.chunk_for_timing()(
-                self._prepared, self._states, self._ring, self._meta
-            )
+            self._chunk_on_copies(sh._prepared, sh._states, sh._ring,
+                                  sh._meta)
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = chunk_mod.snn_chunk.captured
-        with contracts.no_collection(), torch.cuda.graph(graph):
-            self._chunk(
-                self._prepared, self._states, self._ring, self._meta,
-                self._stats,
-            )
+        # on this device's side stream (see ``_capture_stage``)
+        with contracts.no_collection(), torch.cuda.graph(graph, stream=side):
+            self._chunk(sh._prepared, sh._states, sh._ring, sh._meta,
+                        sh._stats)
         self.graph_launches_per_replay = chunk_mod.snn_chunk.captured - before
-        self._graph = graph
+        sh._graph = graph
         self.graph_captures += 1
         contracts.note_capture()
         self._note_captures()
@@ -1202,25 +1389,27 @@ class SNNStreamEngine:
         return int(self._m_recompiles.value)
 
     def _run_chunk(self) -> None:
-        """One chunk over the static buffers: the graph's replay, or the
-        eager chunk (the CPU, the plain backends, a demoted engine)."""
-        if self.graphed:
-            self._graph.replay()
-            self.graph_replays += 1
-        else:
-            self._chunk(
-                self._prepared, self._states, self._ring, self._meta,
-                self._stats,
-            )
+        """One chunk over every shard's static buffers: each shard's graph
+        replayed, or its chunk run eagerly (the CPU, the plain backends, a
+        demoted engine)."""
+        for sh in self._shards:
+            with _on(sh.device):
+                if self.graphed:
+                    sh._graph.replay()
+                    self.graph_replays += 1
+                else:
+                    self._chunk(sh._prepared, sh._states, sh._ring, sh._meta,
+                                sh._stats)
 
     def _demote(self):
         """The supervisor's fallback after persistent ``fused`` failures:
-        the plain ``torch`` chunk, run eagerly over the same buffers; the
-        graph is dropped.  Returns the attempt to retry."""
+        the plain ``torch`` chunk, run eagerly over the same buffers; every
+        shard's graphs are dropped.  Returns the attempt to retry."""
         self.backend = "torch"
         self.graphed = False
-        self._graph = None
-        self._admit_graphs.clear()
+        for sh in self._shards:
+            sh._graph = None
+            sh._admit_graphs.clear()
         return self._attempt
 
     def _attempt(self) -> None:
@@ -1232,10 +1421,10 @@ class SNNStreamEngine:
         self._run_chunk()
 
     def _dispatch_chunk(self, take: np.ndarray) -> None:
-        # the graph's capture stays outside the supervised attempt (the
+        # the graphs' captures stay outside the supervised attempt (the
         # kernel was built at construction): a failed capture raises,
         # never retries or demotes
-        if self.graphed and self._graph is None:
+        if self.graphed and any(sh._graph is None for sh in self._shards):
             self._capture()
         self._supervisor.call(
             self._attempt,
@@ -1243,13 +1432,18 @@ class SNNStreamEngine:
             demote=self._demote if self.backend == "fused" else None,
         )
         # start the stats' trip to the host now, so reading them later
-        # waits for this chunk only, not for chunks dispatched after it
+        # waits for this chunk only, not for chunks dispatched after it:
+        # each shard's sections into their global slot offsets
         i = self._host_next
         self._host_next = (i + 1) % len(self._host_stats)
         host, ready = self._host_stats[i], self._host_ready[i]
-        host.copy_(self._stats, non_blocking=ready is not None)
+        for sh, dst, src in self._stats_copies[i]:
+            with _on(sh.device):
+                dst.copy_(src, non_blocking=ready is not None)
         if ready is not None:
-            ready.record()
+            for dev, ev in zip(self._stats_devices, ready):
+                with _on(dev):
+                    ev.record()
         self._inflight.append((host, ready, take.copy(), list(self._slot_req)))
         self.dispatched_ticks += 1
 
@@ -1322,9 +1516,10 @@ class SNNStreamEngine:
 
     def _fetch(self, host: torch.Tensor, ready) -> np.ndarray:
         """The tick's single device-to-host read: wait for the chunk's
-        stats copy (its event, on the card) and view them."""
-        if ready is not None:
-            ready.synchronize()
+        stats copies (their event on each device, on the card) and view
+        them."""
+        for ev in ready or ():
+            ev.synchronize()
         return host.numpy()
 
     def _retire(self) -> List[int]:
@@ -1447,43 +1642,46 @@ class SNNStreamEngine:
     def _slot_views(
         self, s: int, r: Optional[int] = None
     ) -> List[torch.Tensor]:
-        """Slot ``s``'s rows of the chunk's buffers, in a fixed order:
-        each layer's membrane and refractory row, the first ``r`` steps
-        (all by default) of its ring rows, its metadata."""
+        """Slot ``s``'s rows of its shard's chunk buffers, in a fixed
+        order: each layer's membrane and refractory row, the first ``r``
+        steps (all by default) of its ring rows, its metadata."""
+        sh, j = self._where[s]
         views = []
-        for st in self._states:
-            views += [st.u[s], st.refrac[s]]
-        views += [buf[s, :r] for buf in self._ring.values()]
-        views += [buf[s:s + 1] for buf in self._meta.values()]
+        for st in sh._states:
+            views += [st.u[j], st.refrac[j]]
+        views += [buf[j, :r] for buf in sh._ring.values()]
+        views += [buf[j:j + 1] for buf in sh._meta.values()]
         return views
 
     def _put_rows(self, s: int, pairs) -> None:
         """Write host arrays into views of the engine's buffers in place,
         ``pairs`` of (view, array) for slot ``s``.  On the card the arrays
         are packed into the slot's pinned staging buffer and copied from
-        it on the current stream, ahead of the next replay that reads
-        them; the buffer's event keeps it from being refilled before the
-        copies are done."""
+        it on its device's current stream, ahead of the next replay that
+        reads them; the buffer's event keeps it from being refilled before
+        the copies are done."""
         if self.device.type != "cuda":
             for dst, arr in pairs:
                 src = torch.from_numpy(np.ascontiguousarray(arr))
                 dst.copy_(src.reshape(dst.shape))
             return
-        ready = self._pinned_ready[s]
+        sh, j = self._where[s]
+        ready = sh._pinned_ready[j]
         ready.synchronize()  # the previous copy out of this buffer is done
-        raw, off = self._pinned[s], 0
-        for dst, arr in pairs:
-            n = dst.numel() * dst.element_size()
-            if off + n > raw.numel():
-                raise RuntimeError(
-                    f"slot {s}'s rows do not fit its pinned staging "
-                    f"({raw.numel()} bytes)"
-                )
-            host = raw[off:off + n].view(dst.dtype).view(dst.shape)
-            host.numpy()[...] = np.asarray(arr).reshape(dst.shape)
-            dst.copy_(host, non_blocking=True)
-            off += -(-n // 16) * 16
-        ready.record()
+        raw, off = sh._pinned[j], 0
+        with _on(sh.device):
+            for dst, arr in pairs:
+                n = dst.numel() * dst.element_size()
+                if off + n > raw.numel():
+                    raise RuntimeError(
+                        f"slot {s}'s rows do not fit its pinned staging "
+                        f"({raw.numel()} bytes)"
+                    )
+                host = raw[off:off + n].view(dst.dtype).view(dst.shape)
+                host.numpy()[...] = np.asarray(arr).reshape(dst.shape)
+                dst.copy_(host, non_blocking=True)
+                off += -(-n // 16) * 16
+            ready.record()
 
     # -------------------------------------------------------- preemption
     def _drain_inflight(self) -> None:
@@ -1568,6 +1766,7 @@ class SNNStreamEngine:
         ``_resume_slot``; the round trip is bit-exact."""
         t0 = time.perf_counter()
         rid = self._slot_req[s]
+        sh, j = self._where[s]
         rec = {
             "rid": rid,
             "priority": int(self._slot_priority[s]),
@@ -1579,11 +1778,11 @@ class SNNStreamEngine:
             "abs_deadline": self._slot_deadline[s],
             "t_submit": float(self._slot_submit_t[s]),
             "t_admit": float(self._slot_admit_t[s]),
-            "u": [self._host_copy(st.u[s]) for st in self._states],
-            "refrac": [self._host_copy(st.refrac[s]) for st in self._states],
-            "ring_addrs": self._host_copy(self._ring["addrs"][s]),
-            "ring_values": self._host_copy(self._ring["values"][s]),
-            "ring_counts": self._host_copy(self._ring["counts"][s]),
+            "u": [self._host_copy(st.u[j]) for st in sh._states],
+            "refrac": [self._host_copy(st.refrac[j]) for st in sh._states],
+            "ring_addrs": self._host_copy(sh._ring["addrs"][j]),
+            "ring_values": self._host_copy(sh._ring["values"][j]),
+            "ring_counts": self._host_copy(sh._ring["counts"][j]),
             "counts": self._slot_counts[s].copy(),
             "memsum": self._slot_memsum[s].copy(),
             "events": self._slot_events[s].copy(),
@@ -1591,8 +1790,8 @@ class SNNStreamEngine:
         self._preempt_parked.append(rec)
         # free the slot: total = 0 makes the next chunk take nothing from
         # it; the stale device rows are dead weight until overwritten
-        for buf in self._meta.values():
-            buf[s] = 0
+        for buf in sh._meta.values():
+            buf[j] = 0
         self._slot_req[s] = None
         self._slot_parked[s] = False
         t1 = time.perf_counter()
@@ -1618,8 +1817,9 @@ class SNNStreamEngine:
         meta = {"done": rec["done"], "total": rec["total"], "admit": 0,
                 "fault": 0}
         rows = [a for u, rf in zip(rec["u"], rec["refrac"]) for a in (u, rf)]
-        rows += [rec[f"ring_{k}"] for k in self._ring]
-        rows += [np.array([meta[k]], np.int32) for k in self._meta]
+        rows += [rec[f"ring_{k}"] for k in ("addrs", "values", "counts")]
+        rows += [np.array([meta[k]], np.int32)
+                 for k in ("done", "total", "admit", "fault")]
         views = self._slot_views(s, rec["ring_addrs"].shape[0])
         self._put_rows(s, list(zip(views, rows)))
         self._slot_req[s] = rec["rid"]
@@ -1667,13 +1867,19 @@ class SNNStreamEngine:
         self._drain_inflight()
         now = time.perf_counter()
         arrays: Dict[str, np.ndarray] = {}
-        for i, st in enumerate(self._states):
-            arrays[f"state{i}_u"] = self._host_copy(st.u)
-            arrays[f"state{i}_refrac"] = self._host_copy(st.refrac)
-        for k, v in self._ring.items():
-            arrays[f"ring_{k}"] = self._host_copy(v)
-        for k, v in self._meta.items():
-            arrays[f"meta_{k}"] = self._host_copy(v)
+
+        def gather(get):  # every shard's rows, in global slot order
+            return np.concatenate(
+                [self._host_copy(get(sh)) for sh in self._shards])
+
+        for i in range(self.cfg.num_layers):
+            arrays[f"state{i}_u"] = gather(lambda sh: sh._states[i].u)
+            arrays[f"state{i}_refrac"] = gather(
+                lambda sh: sh._states[i].refrac)
+        for k in ("addrs", "values", "counts"):
+            arrays[f"ring_{k}"] = gather(lambda sh: sh._ring[k])
+        for k in ("done", "total", "admit", "fault"):
+            arrays[f"meta_{k}"] = gather(lambda sh: sh._meta[k])
         arrays["rng_state"] = self._gen.get_state().numpy().copy()
         for name in ("done", "retired", "total", "priority"):
             arrays[f"slot_{name}"] = getattr(self, f"_slot_{name}").copy()
@@ -1820,13 +2026,14 @@ class SNNStreamEngine:
         now = time.perf_counter()
         try:
             # the snapshot's arrays in the order of _slot_views
-            names = [f"state{i}_{k}" for i in range(len(self._states))
+            names = [f"state{i}_{k}" for i in range(self.cfg.num_layers)
                      for k in ("u", "refrac")]
-            names += [f"ring_{k}" for k in self._ring]
-            names += [f"meta_{k}" for k in self._meta]
+            names += [f"ring_{k}" for k in ("addrs", "values", "counts")]
+            names += [f"meta_{k}" for k in ("done", "total", "admit", "fault")]
             r = arrays["ring_counts"].shape[1]
-            for buf in self._ring.values():
-                buf[:, r:].zero_()
+            for sh in self._shards:
+                for buf in sh._ring.values():
+                    buf[:, r:].zero_()
             for s in range(self.S):
                 rows = [arrays[k][s:s + 1] for k in names]
                 self._put_rows(s, list(zip(self._slot_views(s, r), rows)))
@@ -1876,7 +2083,7 @@ class SNNStreamEngine:
             for i, doc in enumerate(manifest["parked"]):
                 req, t_sub, dl = unpack_req(f"p{i}", doc)
                 self._parked.append((doc["rid"], req, t_sub, dl))
-            n_layers = len(self._states)
+            n_layers = self.cfg.num_layers
             for i, doc in enumerate(manifest["preempt_parked"]):
                 rem = doc["deadline_remaining_s"]
                 self._preempt_parked.append({
@@ -2191,43 +2398,60 @@ class SNNStreamEngine:
         }
 
     # -------------------------------------------------------- benchmarks
+    def _unsharded(self, what: str) -> _SlotShard:
+        if len(self._shards) != 1:
+            raise ValueError(
+                f"{what} times the unsharded chunk; this engine has "
+                f"{len(self._shards)} slot shards"
+            )
+        return self._shards[0]
+
     def staged_chunk_args(self, trains: Sequence[np.ndarray]):
         """Stage ``trains`` (one per slot, (T, K) each) into fresh state,
         ring and metadata buffers and return ``(prepared, states, ring,
         meta)``, the arguments of ``chunk_for_timing()``.  Measures the
         resident chunk as the tick loop runs it, without touching the
-        live engine."""
+        live engine.  An unsharded engine's only."""
+        sh = self._unsharded("staged_chunk_args")
         if len(trains) != self.S:
             raise ValueError(f"need {self.S} trains, got {len(trains)}")
-        dev = self.device
+        dev = sh.device
         states = runtime.init_states(self.cfg, self.S, device=dev)
         ring = self._alloc_ring(
-            max(self._ring_steps, max(t.shape[0] for t in trains))
-        )
+            max(self._ring_steps, max(t.shape[0] for t in trains)), self.S,
+            dev)
         meta = {
             k: torch.zeros((self.S,), dtype=torch.int32, device=dev)
             for k in ("done", "total", "admit", "fault")
         }
         for s, t in enumerate(trains):
             train = torch.from_numpy(np.asarray(t, np.float32)).to(dev)
-            self._stage(ring, meta, self._slot_ids[s:s + 1], train)
+            self._stage(ring, meta, sh._slot_ids[s:s + 1], train)
         meta["admit"].zero_()
-        return self._prepared, states, ring, meta
+        return sh._prepared, states, ring, meta
+
+    def _chunk_on_copies(self, prepared, states, ring, meta):
+        """``_chunk`` on copies of ``states`` and ``meta`` into a new
+        stats vector: ``(new_states, new_meta, stats)``; writes nothing it
+        was given."""
+        NL, L = self.cfg.layer_sizes[-1], self.cfg.num_layers
+        n = meta["done"].shape[0]
+        new_states = [
+            neuron.NeuronState(st.u.clone(), st.refrac.clone())
+            for st in states
+        ]
+        new_meta = {k: v.clone() for k, v in meta.items()}
+        stats = torch.empty((2 * n * NL + n * L + n,), dtype=torch.float32,
+                            device=meta["done"].device)
+        self._chunk(prepared, new_states, ring, new_meta, stats)
+        return new_states, new_meta, stats
 
     def chunk_for_timing(self):
         """The eager chunk that writes nothing it was given: each call
         runs ``_chunk`` on copies of ``states`` and ``meta`` and returns
         ``(new_states, new_meta, stats)``, so it may run repeatedly on the
         same arguments.  The tick loop itself writes into the engine's
-        static buffers (through the graph, on the card)."""
-        def run(prepared, states, ring, meta):
-            new_states = [
-                neuron.NeuronState(st.u.clone(), st.refrac.clone())
-                for st in states
-            ]
-            new_meta = {k: v.clone() for k, v in meta.items()}
-            stats = torch.empty_like(self._stats)
-            self._chunk(prepared, new_states, ring, new_meta, stats)
-            return new_states, new_meta, stats
-
-        return run
+        static buffers (through the graph, on the card).  An unsharded
+        engine's only."""
+        self._unsharded("chunk_for_timing")
+        return self._chunk_on_copies
