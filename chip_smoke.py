@@ -214,6 +214,23 @@ Phases, in order; any failure exits non-zero:
    ``ValueError`` naming ``num_slots``.  ``pipeline_forward`` over a
    4-stage mesh of ``cuda:0`` (``tanh(x @ w)``, d = 2048, 8 microbatches
    of 4, float32, TF32 off) within 1e-5 of the sequential composition.
+15. (Runs after 14, before the table.)  The dry run
+   (``repro_torch.launch.dryrun``, every tensor on ``meta``): ``python -m
+   repro_torch.launch.dryrun``'s ``main`` plans ``stablelm-1.6b`` x
+   ``train_4k``, ``prefill_32k`` and ``decode_32k``, ``mixtral-8x7b`` x
+   ``long_500k`` and ``--arch collision-snn`` on the single mesh (each
+   ``ok``), and records ``yi-34b`` x ``long_500k`` as ``skipped``;
+   ``torch.cuda.memory_allocated()`` must not change across them and the
+   six kernels keep 0 launches.  Then the plan held against the card:
+   the train cell of ``stablelm-1.6b`` at phase 12's shape (4 x 128,
+   bfloat16 compute, ``remat="full"``) planned on a one-device mesh, and
+   the same step (``make_step_parts``' device part, ``chain_clip(adam(
+   5e-4), 1.0)``, written into the state's own buffers) run once eagerly
+   on the card from a fresh peak: the planned peak must be within 15 % of
+   ``max_memory_allocated()`` less what was allocated before the step's
+   objects.  Prints both beside phase 12's graphed peak, and a second
+   eager step's ms (CUDA events) against the cell's roofline bound
+   (ungated), and the phase's seconds.
 13. Prints the kernel table as one JSON line (the aer row also carries
    the sparse and layer-1 times, every phase-5 case, phase 6's graph
    counts and the inference launches of phase 10; the snn_chunk row phase 10's DVS and tuned-C
@@ -3398,6 +3415,154 @@ def phase_sharded(torch, dev, params_np, card, main_run):
             "ms_tick": spread}
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the dry run (every tensor on meta) and its plan on the card
+# --------------------------------------------------------------------------
+DRYRUN_CELLS = (("stablelm-1.6b", "train_4k"), ("stablelm-1.6b", "prefill_32k"),
+                ("stablelm-1.6b", "decode_32k"), ("mixtral-8x7b", "long_500k"))
+PLAN_BAND = 0.15  # planned peak against the card's, relative
+
+
+def dryrun_cells(torch, outdir):
+    """The dry run's CLI on the single mesh: the cells of ``DRYRUN_CELLS``
+    ok, ``yi-34b`` x ``long_500k`` skipped, the SNN ok; no storage on the
+    card.  Returns {(arch, shape): record}."""
+    from repro_torch.launch import dryrun
+
+    runs = [["--arch", a, "--shape", s] for a, s in DRYRUN_CELLS]
+    runs += [["--arch", "yi-34b", "--shape", "long_500k"],
+             ["--arch", "collision-snn"]]
+    before = torch.cuda.memory_allocated()
+    recs = {}
+    for argv in runs:
+        t0 = time.perf_counter()
+        try:
+            dryrun.main(argv + ["--mesh", "single", "--force", "--outdir",
+                                str(outdir)])
+        except SystemExit as e:
+            fail(f"dryrun {' '.join(argv)}: exited {e.code}")
+        secs = time.perf_counter() - t0
+        arch = argv[1]
+        shape = argv[3] if len(argv) > 2 else "train"
+        with open(dryrun.cell_path(str(outdir), arch, shape, "single", None)) as f:
+            recs[(arch, shape)] = rec = json.load(f)
+        want = "skipped" if arch == "yi-34b" else "ok"
+        if rec["status"] != want:
+            fail(f"dryrun {arch} x {shape}: status {rec['status']}, want {want}"
+                 f": {rec.get('error') or rec.get('reason')}")
+        if want == "skipped":
+            print(f"dryrun[{arch} x {shape}]: skipped ({rec['reason']}) in "
+                  f"{secs:.2f} s")
+            continue
+        mem, cost, roof = rec["memory"], rec["cost"], rec["roofline"]
+        print(f"dryrun[{arch} x {shape}]: {rec['chips']} devices "
+              f"{rec['mesh_shape']}, planned in {rec['plan_s']} s ({secs:.2f} "
+              f"s with the JSON); per device: resident "
+              f"{mem['resident_per_device']['total'] / 1e9:.3f} GB (exact), "
+              f"peak {mem['peak_live_bytes'] / 1e9:.3f} GB (counted at batch "
+              f"{mem['step']['batch_per_device']}), flops "
+              f"{cost['flops_per_device']:.4g}, bytes "
+              f"{cost['bytes_per_device']:.4g} (even split of counted "
+              f"totals); compute {roof['compute_s'] * 1e3:.3f} ms, memory "
+              f"{roof['memory_s'] * 1e3:.3f} ms, {roof['dominant']} dominant,"
+              f" useful flops {roof['useful_flops_ratio']:.3f}")
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        fail(f"dryrun: the cells allocated {after - before} B on the card")
+    return recs
+
+
+def phase_dryrun(torch, dev, card, lm_train):
+    """Phase 15: the dry run's cells on meta, then its plan of phase 12's
+    train step held against the same step on the card."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adam, chain_clip
+    from repro_torch.train.loop import TrainState, make_step_parts
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counted = lm_kernels()
+    for fn in counted:
+        fn.launches = 0
+    outdir = ROOT / "build" / "dryrun_smoke"
+    shutil.rmtree(outdir, ignore_errors=True)
+    dryrun_cells(torch, outdir)
+    shutil.rmtree(outdir, ignore_errors=True)
+
+    # the plan of phase 12's step on one device
+    sp = shapes.ShapeSpec(f"train_{LM_TRAIN_BATCH}x{LM_TRAIN_SEQ}",
+                          LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
+    rec = dryrun.run_cell(LM_ARCH, sp, "one",
+                          mesh_override=make_production_mesh(
+                              shape=(1,), axes=("data",)))
+    planned = rec["memory"]["peak_live_bytes"]
+    plan_start = rec["memory"]["step"]["start_bytes"]
+    bound_ms = rec["roofline"]["bound_s"] * 1e3
+
+    # the same step on the card: fresh state, fresh peak
+    cfg = configs.get(LM_ARCH)
+    floor = torch.cuda.memory_allocated()
+    model = Model(cfg, dev)
+    params = model.init(SEED)
+    opt = chain_clip(adam(5e-4), 1.0)
+    opt_state = opt.init(params)
+    batches = lm_batches(cfg, dev)
+    batch = next(batches)
+    _, device = make_step_parts(model, opt)
+    state = TrainState(params, opt_state, 0)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated() - floor
+    torch.cuda.reset_peak_memory_stats()
+    m = device(state, batch, (params, opt_state))
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - floor
+    loss = float(m["loss"])
+    batch = next(batches)
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    m = device(state, batch, (params, opt_state))
+    e.record()
+    torch.cuda.synchronize()
+    step_ms = a.elapsed_time(e)
+    loss2 = float(m["loss"])
+    launched = {fn.__name__: fn.launches for fn in counted if fn.launches}
+    if launched:
+        fail(f"dryrun: the phase launched {launched}")
+    if not (math.isfinite(loss) and math.isfinite(loss2)):
+        fail(f"dryrun: the eager step's losses {loss}, {loss2}")
+    off = planned / measured - 1.0
+    print(f"dryrun plan[{LM_ARCH} x {sp.name}]: one device, planned on meta "
+          f"in {rec['plan_s']} s: state and batch {plan_start / 1e9:.3f} GB, "
+          f"peak {planned / 1e9:.3f} GB ({planned} B) | the same step eager "
+          f"on the card: state and batch {start / 1e9:.3f} GB, peak "
+          f"allocated {measured / 1e9:.3f} GB ({measured} B, less "
+          f"{floor} B allocated before its objects) | plan {off:+.2%} of the "
+          f"card (band {PLAN_BAND:.0%}) | phase 12's graphed step peaked at "
+          f"{lm_train['peak'] / 1e9:.2f} GB | on {card}")
+    if abs(off) > PLAN_BAND:
+        fail(f"dryrun plan: planned peak {planned} B is {off:+.2%} of the "
+             f"card's {measured} B (band {PLAN_BAND:.0%})")
+    print(f"dryrun plan[{LM_ARCH} x {sp.name}]: a second eager step "
+          f"{step_ms:.3f} ms (CUDA events; loss {loss:.4f} -> {loss2:.4f}) "
+          f"against the cell's roofline bound {bound_ms:.3f} ms "
+          f"({rec['roofline']['dominant']}: {rec['cost']['flops_global']:.4g} "
+          f"counted flops at {dryrun.PEAK_FLOPS:.4g}/s, "
+          f"{rec['cost']['bytes_global']:.4g} B of unfused op traffic at "
+          f"{dryrun.HBM_BW:.4g} B/s); {step_ms / bound_ms:.2f}x the bound, "
+          f"not gated | on {card}")
+    del model, params, opt_state, state, batch, batches, m, device
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dryrun: phase 15 took {time.perf_counter() - t_phase:.1f} s | on "
+          f"{card}")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: the port's sources (src/repro_torch) are not "
@@ -3458,9 +3623,11 @@ def main() -> int:
     # 11. the LM zoo's serving path (no kernel of the table on it)
     phase_lm(torch, dev, card)
     # 12. the LM zoo's training path (no kernel of the table on it either)
-    phase_lm_train(torch, dev, card)
+    lm_train = phase_lm_train(torch, dev, card)
     # 14. slot sharding over a mesh of the card; the GPipe pipeline
     sharded = phase_sharded(torch, dev, params_np, card, main_run)
+    # 15. the dry run on meta, and its plan of phase 12's step on the card
+    phase_dryrun(torch, dev, card, lm_train)
 
     odd = collections.Counter(x for x in RECORD_OFFSETS if x)
     print(f"profiler: {sum(odd.values())} of {len(RECORD_OFFSETS)} kernel "

@@ -30,8 +30,7 @@ same batches an uninterrupted run would see.
 
 ``--metrics-json`` dumps the trainer's registry snapshot, ``--trace-out``
 the per-window spans as Chrome trace JSON, ``--timeseries-out`` the
-per-window time series as JSONL.  Training of the language models
-(``--arch``) is not ported yet.
+per-window time series as JSONL.
 """
 
 from __future__ import annotations

@@ -33,15 +33,17 @@ NEG_INF = -1e30
 def gqa_init(init: Init, cfg: ModelConfig):
     H, Kv, D, E = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     p = {
-        "wq": layers.dense_init(init, (E, H, D)),
-        "wk": layers.dense_init(init, (E, Kv, D)),
-        "wv": layers.dense_init(init, (E, Kv, D)),
-        "wo": layers.dense_init(init, (H, D, E), fan_in_dims=2),
+        "wq": layers.dense_init(init, (E, H, D),
+                                ("embed", "heads", "head_dim")),
+        "wk": layers.dense_init(init, (E, Kv, D), ("embed", "kv", "head_dim")),
+        "wv": layers.dense_init(init, (E, Kv, D), ("embed", "kv", "head_dim")),
+        "wo": layers.dense_init(init, (H, D, E),
+                                ("heads", "head_dim", "embed"), fan_in_dims=2),
     }
     if cfg.qkv_bias:
-        p["bq"] = init.full((H, D), 0.0)
-        p["bk"] = init.full((Kv, D), 0.0)
-        p["bv"] = init.full((Kv, D), 0.0)
+        p["bq"] = init.full((H, D), 0.0, axes=("heads", "head_dim"))
+        p["bk"] = init.full((Kv, D), 0.0, axes=("kv", "head_dim"))
+        p["bv"] = init.full((Kv, D), 0.0, axes=("kv", "head_dim"))
     return p
 
 
@@ -50,13 +52,16 @@ def mla_init(init: Init, cfg: ModelConfig):
     r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     return {
-        "q_a": layers.dense_init(init, (E, r_q)),
-        "q_norm": init.full((r_q,), 1.0),
-        "q_b": layers.dense_init(init, (r_q, H, dn + dr)),
-        "kv_a": layers.dense_init(init, (E, r_kv + dr)),
-        "kv_norm": init.full((r_kv,), 1.0),
-        "kv_b": layers.dense_init(init, (r_kv, H, dn + dv)),
-        "wo": layers.dense_init(init, (H, dv, E), fan_in_dims=2),
+        "q_a": layers.dense_init(init, (E, r_q), ("embed", "q_rank")),
+        "q_norm": init.full((r_q,), 1.0, axes=("q_rank",)),
+        "q_b": layers.dense_init(init, (r_q, H, dn + dr),
+                                 ("q_rank", "heads", "head_dim")),
+        "kv_a": layers.dense_init(init, (E, r_kv + dr), ("embed", "kv_rank")),
+        "kv_norm": init.full((r_kv,), 1.0, axes=("kv_rank",)),
+        "kv_b": layers.dense_init(init, (r_kv, H, dn + dv),
+                                  ("kv_rank", "heads", "head_dim")),
+        "wo": layers.dense_init(init, (H, dv, E),
+                                ("heads", "head_dim", "embed"), fan_in_dims=2),
     }
 
 

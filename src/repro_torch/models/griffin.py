@@ -33,18 +33,19 @@ def rglru_block_init(init: Init, cfg: ModelConfig):
     E = cfg.d_model
     R = cfg.lru_width or E
     # Lambda init so that a^c in [0.9, 0.999] at r=1 (paper init)
-    u = init.uniform((R,), 0.9, 0.999).float()
-    lam = torch.log(torch.expm1(-torch.log(u) / cfg.rglru_c))
+    u = init.uniform((R,), 0.9, 0.999, axes=("lru",))
+    lam = init.map(u, lambda u: torch.log(
+        torch.expm1(-torch.log(u.float()) / cfg.rglru_c)).to(init.dtype))
     return {
-        "w_y": layers.dense_init(init, (E, R)),
-        "w_in": layers.dense_init(init, (E, R)),
-        "conv_w": init.normal((CONV_WIDTH, R), 0.1),
-        "w_a": layers.dense_init(init, (R, R)),
-        "b_a": init.full((R,), 0.0),
-        "w_gx": layers.dense_init(init, (R, R)),
-        "b_gx": init.full((R,), 0.0),
-        "lambda_raw": lam.to(init.dtype),
-        "w_out": layers.dense_init(init, (R, E)),
+        "w_y": layers.dense_init(init, (E, R), ("embed", "lru")),
+        "w_in": layers.dense_init(init, (E, R), ("embed", "lru")),
+        "conv_w": init.normal((CONV_WIDTH, R), 0.1, axes=("conv_w", "lru")),
+        "w_a": layers.dense_init(init, (R, R), ("lru", "lru_in")),
+        "b_a": init.full((R,), 0.0, axes=("lru",)),
+        "w_gx": layers.dense_init(init, (R, R), ("lru", "lru_in")),
+        "b_gx": init.full((R,), 0.0, axes=("lru",)),
+        "lambda_raw": lam,
+        "w_out": layers.dense_init(init, (R, E), ("lru", "embed")),
     }
 
 

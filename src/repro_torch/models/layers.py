@@ -1,7 +1,8 @@
 """Shared neural layers: norms, RoPE, MLPs, embeddings.
 
 Every init function takes an ``Init`` (the generator, device and dtype of
-one model's initialisation) and returns a dict of tensors.  Parameters
+one model's initialisation) and returns a dict of tensors, or of their
+logical axes in ``Init``'s axes mode (each draw names its dims).  Parameters
 use the reference's layouts and distributions; draws come from the
 port's own generator, so values differ from the reference's.
 """
@@ -19,46 +20,70 @@ class Init:
     """Where and how a model's parameters are drawn.
 
     On the ``meta`` device nothing is drawn: leaves carry shape and dtype
-    only (``Model.abstract``, ``param_count``).
+    only (``Model.abstract``, ``param_count``).  In the axes mode
+    (``Init.logical_axes()``) every draw returns the logical axes it is
+    given, one name per dim, in place of a tensor, and ``stacked`` prepends
+    ``"layers"``: the params' partitioning names (``Model.logical_axes``).
     """
 
     def __init__(self, generator: Optional[torch.Generator],
                  device: torch.device, dtype: torch.dtype = torch.float32,
-                 lead: Tuple[int, ...] = ()):
+                 lead: Tuple[int, ...] = (), names: bool = False):
         self.gen = generator
         self.device = torch.device(device)
         self.dtype = dtype
         self.lead = tuple(lead)
+        self.names = names
+
+    @classmethod
+    def logical_axes(cls) -> "Init":
+        """The axes mode: draws return their logical axes."""
+        return cls(None, torch.device("meta"), names=True)
 
     def stacked(self, n: int) -> "Init":
         """The same draws with a leading layer axis of n on every leaf."""
-        return Init(self.gen, self.device, self.dtype, (n,) + self.lead)
+        return Init(self.gen, self.device, self.dtype, (n,) + self.lead,
+                    self.names)
 
     @property
     def meta(self) -> bool:
         return self.device.type == "meta"
 
+    def _axes(self, axes) -> Tuple[str, ...]:
+        return ("layers",) * len(self.lead) + tuple(axes)
+
     def _empty(self, shape) -> torch.Tensor:
         return torch.empty(self.lead + tuple(shape), dtype=torch.float32,
                            device=self.device)
 
-    def uniform(self, shape, lo: float, hi: float) -> torch.Tensor:
+    def uniform(self, shape, lo: float, hi: float, *, axes):
         """U[lo, hi) drawn in float32, then cast to the param dtype."""
+        if self.names:
+            return self._axes(axes)
         t = self._empty(shape)
         if not self.meta:
             t.uniform_(lo, hi, generator=self.gen)
         return t.to(self.dtype)
 
-    def normal(self, shape, std: float) -> torch.Tensor:
+    def normal(self, shape, std: float, *, axes):
         """N(0, 1) drawn in float32, cast to the param dtype, times std."""
+        if self.names:
+            return self._axes(axes)
         t = self._empty(shape)
         if not self.meta:
             t.normal_(generator=self.gen)
         return t.to(self.dtype) * std
 
-    def full(self, shape, value: float) -> torch.Tensor:
+    def full(self, shape, value: float, *, axes):
+        if self.names:
+            return self._axes(axes)
         return torch.full(self.lead + tuple(shape), value, dtype=self.dtype,
                           device=self.device)
+
+    def map(self, leaf, fn):
+        """``fn(leaf)``: a leaf derived from a draw; in the axes mode the
+        draw's axes, unchanged."""
+        return leaf if self.names else fn(leaf)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -67,18 +92,19 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- helpers
-def dense_init(init: Init, shape: Sequence[int], fan_in_dims: int = 1):
-    """fan-in-scaled uniform init."""
+def dense_init(init: Init, shape: Sequence[int], axes: Sequence[str],
+               fan_in_dims: int = 1):
+    """fan-in-scaled uniform init; axes = logical names, one per dim."""
     fan_in = math.prod(shape[:fan_in_dims])
     scale = 1.0 / math.sqrt(fan_in)
-    return init.uniform(shape, -scale, scale)
+    return init.uniform(shape, -scale, scale, axes=axes)
 
 
 # ---------------------------------------------------------------- norms
 def norm_init(init: Init, d: int, kind: str):
-    p = {"scale": init.full((d,), 1.0)}
+    p = {"scale": init.full((d,), 1.0, axes=("embed",))}
     if kind == "layernorm":
-        p["bias"] = init.full((d,), 0.0)
+        p["bias"] = init.full((d,), 0.0, axes=("embed",))
     return p
 
 
@@ -132,9 +158,9 @@ def apply_rope(
 def mlp_init(init: Init, d_model: int, d_ff: int, kind: str):
     p = {}
     if kind in ("swiglu", "geglu"):
-        p["w_gate"] = dense_init(init, (d_model, d_ff))
-    p["w_up"] = dense_init(init, (d_model, d_ff))
-    p["w_down"] = dense_init(init, (d_ff, d_model))
+        p["w_gate"] = dense_init(init, (d_model, d_ff), ("embed", "mlp"))
+    p["w_up"] = dense_init(init, (d_model, d_ff), ("embed", "mlp"))
+    p["w_down"] = dense_init(init, (d_ff, d_model), ("mlp", "embed"))
     return p
 
 
@@ -153,7 +179,8 @@ def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 # ---------------------------------------------------------------- embed
 def embedding_init(init: Init, vocab: int, d_model: int):
-    return {"table": init.normal((vocab, d_model), 0.02)}
+    return {"table": init.normal((vocab, d_model), 0.02,
+                                 axes=("vocab", "embed"))}
 
 
 def unembed(p_head: torch.Tensor, x: torch.Tensor,

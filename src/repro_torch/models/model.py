@@ -10,7 +10,10 @@ Handles the modality frontends (stubs, as in the reference):
 Params are nested dicts of tensors in the reference's layout (groups
 stacked over their repeat dimension) and every method is a function of
 them.  ``Model.abstract()`` returns the params as ``meta`` tensors: shapes
-and dtypes without allocation (``param_count`` of a 34B config).
+and dtypes without allocation (``param_count`` of a 34B config);
+``Model.logical_axes()`` the tree of the same structure naming each
+leaf's dims for ``distributed.partitioning``, and ``abstract_cache`` the
+decode cache on ``meta`` (the dry run, ``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -103,26 +106,38 @@ class Model:
         return self._build(Init(None, torch.device("meta"),
                                 _dtype(self.cfg.param_dtype)))
 
+    def logical_axes(self) -> Tree:
+        """The params' logical axes: a tree of ``abstract()``'s structure
+        whose leaves name each dim (``("layers", "embed", "mlp")``), the
+        reference's ``Model.abstract()[1]``.  Integer storage
+        (``q115_int``, ``q1_7_int``) keeps the float leaves' axes."""
+        return self._build(Init.logical_axes())
+
     def _build(self, init: Init) -> Tree:
         cfg = self.cfg
         Vp = cfg.padded_vocab
         p = {}
         if cfg.num_codebooks:
             p["embed"] = {"table": init.normal(
-                (cfg.num_codebooks, Vp, cfg.d_model), 0.02)}
+                (cfg.num_codebooks, Vp, cfg.d_model), 0.02,
+                axes=("codebook", "vocab", "embed"))}
         else:
             p["embed"] = layers.embedding_init(init, Vp, cfg.d_model)
         if cfg.num_image_tokens:
-            p["img_proj"] = layers.dense_init(init,
-                                              (CLIP_EMBED_DIM, cfg.d_model))
+            p["img_proj"] = layers.dense_init(
+                init, (CLIP_EMBED_DIM, cfg.d_model), ("clip", "embed"))
         for gname, pattern, repeats in transformer.layer_plan(cfg):
             p[gname] = transformer.group_init(init, cfg, pattern, repeats)
         p["final_norm"] = layers.norm_init(init, cfg.d_model, cfg.norm_kind)
         if not cfg.tie_embeddings:
-            shape = ((cfg.d_model, cfg.num_codebooks, Vp) if cfg.num_codebooks
-                     else (cfg.d_model, Vp))
-            p["lm_head"] = layers.dense_init(init, shape)
-        if cfg.quant in ("q115_int", "q1_7_int"):
+            if cfg.num_codebooks:
+                p["lm_head"] = layers.dense_init(
+                    init, (cfg.d_model, cfg.num_codebooks, Vp),
+                    ("embed", "codebook", "vocab"))
+            else:
+                p["lm_head"] = layers.dense_init(init, (cfg.d_model, Vp),
+                                                 ("embed", "vocab"))
+        if cfg.quant in ("q115_int", "q1_7_int") and not init.names:
             p = self._quantize_storage(p)
         return p
 
@@ -304,6 +319,11 @@ class Model:
                 cfg, pattern, repeats, batch, cache_len, _dtype(cfg.dtype), dev)
             for gname, pattern, repeats in transformer.layer_plan(cfg)
         }
+
+    def abstract_cache(self, batch: int, cache_len: int) -> Tree:
+        """The decode cache as ``meta`` tensors: ``init_cache``'s shapes
+        and dtypes, no storage."""
+        return self.init_cache(batch, cache_len, device="meta")
 
     def param_count(self) -> int:
         return sum(t.numel() for t in tree_leaves(self.abstract()))

@@ -25,10 +25,13 @@ def moe_init(init: Init, cfg: ModelConfig):
     scale = 1.0 / math.sqrt(E)
     fscale = 1.0 / math.sqrt(Fd)
     return {
-        "router": layers.dense_init(init, (E, N)),
-        "w_gate": init.uniform((N, E, Fd), -scale, scale),
-        "w_up": init.uniform((N, E, Fd), -scale, scale),
-        "w_down": init.uniform((N, Fd, E), -fscale, fscale),
+        "router": layers.dense_init(init, (E, N), ("embed", "expert")),
+        "w_gate": init.uniform((N, E, Fd), -scale, scale,
+                               axes=("expert", "embed", "mlp")),
+        "w_up": init.uniform((N, E, Fd), -scale, scale,
+                             axes=("expert", "embed", "mlp")),
+        "w_down": init.uniform((N, Fd, E), -fscale, fscale,
+                               axes=("expert", "mlp", "embed")),
     }
 
 

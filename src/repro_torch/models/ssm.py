@@ -29,24 +29,25 @@ def ssm_init(init: Init, cfg: ModelConfig):
     DI = cfg.d_inner
     H, N, G = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_ngroups
     W = cfg.ssm_conv_width
-    a_log = init.uniform((H,), 1.0, 16.0).float()
-    dt = init.uniform((H,), 1e-3, 1e-1).float()
+    a_log = init.uniform((H,), 1.0, 16.0, axes=("heads",))
+    dt = init.uniform((H,), 1e-3, 1e-1, axes=("heads",))
     return {
-        "w_z": layers.dense_init(init, (E, DI)),
-        "w_x": layers.dense_init(init, (E, DI)),
-        "w_B": layers.dense_init(init, (E, G, N)),
-        "w_C": layers.dense_init(init, (E, G, N)),
-        "w_dt": layers.dense_init(init, (E, H)),
+        "w_z": layers.dense_init(init, (E, DI), ("embed", "inner")),
+        "w_x": layers.dense_init(init, (E, DI), ("embed", "inner")),
+        "w_B": layers.dense_init(init, (E, G, N), ("embed", "groups", "state")),
+        "w_C": layers.dense_init(init, (E, G, N), ("embed", "groups", "state")),
+        "w_dt": layers.dense_init(init, (E, H), ("embed", "heads")),
         # depthwise causal convs (width W) on x, B, C streams
-        "conv_x": init.normal((W, DI), 0.1),
-        "conv_B": init.normal((W, G * N), 0.1),
-        "conv_C": init.normal((W, G * N), 0.1),
+        "conv_x": init.normal((W, DI), 0.1, axes=("conv_w", "inner")),
+        "conv_B": init.normal((W, G * N), 0.1, axes=("conv_w", "state")),
+        "conv_C": init.normal((W, G * N), 0.1, axes=("conv_w", "state")),
         # per-head decay / skip / dt bias
-        "A_log": torch.log(a_log).to(init.dtype),
-        "D": init.full((H,), 1.0),
-        "dt_bias": torch.log(torch.expm1(dt)).to(init.dtype),
-        "norm_scale": init.full((DI,), 1.0),
-        "out_proj": layers.dense_init(init, (DI, E)),
+        "A_log": init.map(a_log, lambda u: torch.log(u.float()).to(init.dtype)),
+        "D": init.full((H,), 1.0, axes=("heads",)),
+        "dt_bias": init.map(dt, lambda u: torch.log(torch.expm1(u.float()))
+                            .to(init.dtype)),
+        "norm_scale": init.full((DI,), 1.0, axes=("inner",)),
+        "out_proj": layers.dense_init(init, (DI, E), ("inner", "embed")),
     }
 
 

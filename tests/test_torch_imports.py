@@ -103,3 +103,16 @@ def test_scan_covers_the_lm_training_path():
                 "train/loop.py", "launch/train.py", "models/model.py",
                 "models/transformer.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_scan_covers_the_dry_run():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("launch/shapes.py", "launch/mesh.py", "launch/dryrun.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_train_launcher_says_lm_training_is_ported():
+    import repro_torch.launch.train as train
+
+    assert "not ported" not in train.__doc__
+    assert "--arch stablelm-1.6b" in train.__doc__
