@@ -219,11 +219,16 @@ Phases, in order; any failure exits non-zero:
    repro_torch.launch.dryrun``'s ``main`` plans ``stablelm-1.6b`` x
    ``train_4k``, ``prefill_32k`` and ``decode_32k``, ``mixtral-8x7b`` x
    ``long_500k`` and ``--arch collision-snn`` on the single mesh (each
-   ``ok``), and records ``yi-34b`` x ``long_500k`` as ``skipped``;
+   ``ok``, each step partitioned as DTensors over a ``fake`` process
+   group of 256 ranks; the SNN cell's collectives by kind and mesh axis
+   and its dominant term printed, its traffic above 0), and records
+   ``yi-34b`` x ``long_500k`` as ``skipped``;
    ``torch.cuda.memory_allocated()`` must not change across them and the
    six kernels keep 0 launches.  Then the plan held against the card:
    the train cell of ``stablelm-1.6b`` at phase 12's shape (4 x 128,
-   bfloat16 compute, ``remat="full"``) planned on a one-device mesh, and
+   bfloat16 compute, ``remat="full"``) planned on a one-device mesh
+   (unsharded, and partitioned on a (1, 1) mesh, whose flops, bytes and
+   peak must equal the unsharded plan's with no collective traffic), and
    the same step (``make_step_parts``' device part, ``chain_clip(adam(
    5e-4), 1.0)``, written into the state's own buffers) run once eagerly
    on the card from a fresh peak: the planned peak must be within 15 % of
@@ -3455,17 +3460,34 @@ def dryrun_cells(torch, outdir):
                   f"{secs:.2f} s")
             continue
         mem, cost, roof = rec["memory"], rec["cost"], rec["roofline"]
+        colls = rec["collectives"]
+        if cost["how"]["flops_per_device"] != "counted_partitioned":
+            fail(f"dryrun {arch} x {shape}: not planned partitioned: "
+                 f"{cost['how']}")
         print(f"dryrun[{arch} x {shape}]: {rec['chips']} devices "
-              f"{rec['mesh_shape']}, planned in {rec['plan_s']} s ({secs:.2f} "
-              f"s with the JSON); per device: resident "
+              f"{rec['mesh_shape']}, planned partitioned in {rec['plan_s']} s "
+              f"({secs:.2f} s with the JSON); per device: resident "
               f"{mem['resident_per_device']['total'] / 1e9:.3f} GB (exact), "
-              f"peak {mem['peak_live_bytes'] / 1e9:.3f} GB (counted at batch "
-              f"{mem['step']['batch_per_device']}), flops "
+              f"peak {mem['peak_live_bytes'] / 1e9:.3f} GB, flops "
               f"{cost['flops_per_device']:.4g}, bytes "
-              f"{cost['bytes_per_device']:.4g} (even split of counted "
-              f"totals); compute {roof['compute_s'] * 1e3:.3f} ms, memory "
-              f"{roof['memory_s'] * 1e3:.3f} ms, {roof['dominant']} dominant,"
-              f" useful flops {roof['useful_flops_ratio']:.3f}")
+              f"{cost['bytes_per_device']:.4g}, collective traffic "
+              f"{colls['traffic_bytes']:.4g} B (all counted on one device of "
+              f"the partitioned step); compute {roof['compute_s'] * 1e3:.3f} "
+              f"ms, memory {roof['memory_s'] * 1e3:.3f} ms, collective "
+              f"{roof['collective_s'] * 1e3:.3f} ms, {roof['dominant']} "
+              f"dominant, useful flops {roof['useful_flops_ratio']:.3f}")
+        if arch == "collision-snn":
+            kinds = {k: (int(v["count"]), v["traffic_bytes"])
+                     for k, v in colls["ops"].items()}
+            axes = {a: sorted(k) for a, k in colls["by_axis"].items()}
+            print(f"dryrun sharded[{arch} x single]: the step as DTensors over "
+                  f"a fake group of {rec['chips']} ranks: collectives (count, "
+                  f"traffic B a device) {kinds}, by mesh axis {axes}; "
+                  f"{roof['dominant']} dominant (collective "
+                  f"{roof['collective_s'] * 1e3:.4f} ms at "
+                  f"{dryrun.LINK_BW:.4g} B/s)")
+            if not colls["traffic_bytes"] > 0:
+                fail(f"dryrun sharded {arch}: no collective counted")
     after = torch.cuda.memory_allocated()
     if after != before:
         fail(f"dryrun: the cells allocated {after - before} B on the card")
@@ -3473,8 +3495,10 @@ def dryrun_cells(torch, outdir):
 
 
 def phase_dryrun(torch, dev, card, lm_train):
-    """Phase 15: the dry run's cells on meta, then its plan of phase 12's
-    train step held against the same step on the card."""
+    """Phase 15: the dry run's cells on meta, each step partitioned as
+    DTensors over a fake group of the mesh's size, then its plan of phase
+    12's train step (unsharded, and partitioned on a (1, 1) mesh, which
+    must agree) held against the same step on the card."""
     import shutil
 
     from repro_torch import configs
@@ -3495,12 +3519,28 @@ def phase_dryrun(torch, dev, card, lm_train):
     dryrun_cells(torch, outdir)
     shutil.rmtree(outdir, ignore_errors=True)
 
-    # the plan of phase 12's step on one device
+    # the plan of phase 12's step on one device: unsharded, and partitioned
+    # on a mesh of one position, which must plan the same step
     sp = shapes.ShapeSpec(f"train_{LM_TRAIN_BATCH}x{LM_TRAIN_SEQ}",
                           LM_TRAIN_SEQ, LM_TRAIN_BATCH, "train")
-    rec = dryrun.run_cell(LM_ARCH, sp, "one",
+    rec = dryrun.run_cell(LM_ARCH, sp, "one", partitioned=False,
                           mesh_override=make_production_mesh(
                               shape=(1,), axes=("data",)))
+    part = dryrun.run_cell(LM_ARCH, sp, "one",
+                           mesh_override=make_production_mesh(
+                               shape=(1, 1), axes=("data", "model")))
+    same = {k: (part["cost"][k], rec["cost"][k]) for k in (
+        "flops_per_device", "bytes_per_device")}
+    same["peak_live_bytes"] = (part["memory"]["peak_live_bytes"],
+                               rec["memory"]["peak_live_bytes"])
+    print(f"dryrun plan[{LM_ARCH} x {sp.name}]: partitioned on a (1, 1) mesh "
+          f"in {part['plan_s']} s against unsharded in {rec['plan_s']} s: "
+          + ", ".join(f"{k} {a:.6g} vs {b:.6g}" for k, (a, b) in same.items())
+          + f"; collective traffic {part['collectives']['traffic_bytes']} B")
+    if any(a != b for a, b in same.values()) or \
+            part["collectives"]["traffic_bytes"] != 0:
+        fail(f"dryrun plan: the (1, 1) partitioned plan differs from the "
+             f"unsharded one: {same}")
     planned = rec["memory"]["peak_live_bytes"]
     plan_start = rec["memory"]["step"]["start_bytes"]
     bound_ms = rec["roofline"]["bound_s"] * 1e3

@@ -115,3 +115,28 @@ def run_neuron(
         )
         spikes.append(spk)
     return torch.stack(spikes), state
+
+
+def membrane_trace(
+    cfg: NeuronConfig,
+    currents: torch.Tensor,  # (T, ...) input current per step
+    *,
+    beta: torch.Tensor,
+    threshold: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like ``run_neuron`` from rest, but also returns the membrane
+    potential after each step: (spikes (T, ...), u (T, ...)).
+
+    Used for losses computed on output-layer membrane potentials
+    (cross-entropy summed across time steps, paper §4.2.1) and for the
+    Fig.-1-style membrane visualisations."""
+    state = init_state(tuple(currents.shape[1:]), currents.dtype,
+                       currents.device)
+    spikes, us = [], []
+    for cur in currents:
+        state, spk = neuron_step(
+            cfg, state, cur, beta=beta, threshold=threshold
+        )
+        spikes.append(spk)
+        us.append(state.u)
+    return torch.stack(spikes), torch.stack(us)

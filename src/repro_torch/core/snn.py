@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import coding, neuron, quant
+from repro_torch.distributed.partitioning import laid_out_like
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -121,7 +122,8 @@ def dropout(
     """Inverted dropout: keep each entry with probability ``1 - rate``
     and scale the kept ones by ``1 / (1 - rate)``.  The draws come from
     ``generator``, which must live on ``x``'s device."""
-    u = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    u = laid_out_like(lambda shape: torch.rand(
+        shape, generator=generator, dtype=x.dtype, device=x.device), x)
     return apply_dropout(x, u, rate)
 
 

@@ -26,16 +26,20 @@ module carries small ones:
 - :class:`NamedSharding`: a spec over a mesh that says which index range
   of each dim a mesh position holds.
 
-``activation_sharding``/``constrain`` keep the reference's API: one process
-places no activation, so ``constrain`` returns its input under any mesh.
-The reference's ``shard_map`` shim is not carried: the port's serving
-engine keeps each slot shard's buffers resident on its own device instead
-(``serving.snn_engine``).
+``activation_sharding``/``constrain`` keep the reference's API.  A plain
+tensor holds every element on one device, so ``constrain`` returns it
+unchanged; a ``DTensor`` (the dry run's partitioned step, whose trees
+``distribute`` places) is redistributed to the spec the logical axes name,
+each move issued as the collective it is.  The reference's ``shard_map``
+shim is not carried: the port's serving engine keeps each slot shard's
+buffers resident on its own device instead (``serving.snn_engine``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import sys
 import threading
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -197,6 +201,55 @@ class NamedSharding:
         """Every mesh position, in row-major order of the mesh axes."""
         return np.ndindex(self.mesh.devices.shape)
 
+    def placements(self, ndim: int) -> list:
+        """The DTensor placements of an ``ndim`` array, one per mesh axis:
+        ``Shard(i)`` on each mesh axis that ``spec[i]`` names, ``Replicate()``
+        elsewhere.  An axis of one position holds the whole dim either way
+        and gets ``Replicate()``.  Blocks follow the mesh's axis order, so a
+        spec that names axes against it holds blocks of the same sizes in
+        another order."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        sizes = self.mesh.shape
+        out = [Replicate() for _ in self.mesh.axis_names]
+        for i in range(ndim):
+            for a in self._axes(i):
+                if sizes[a] > 1:
+                    out[self.mesh.axis_names.index(a)] = Shard(i)
+        return out
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor.  A DTensor exists only once its module
+    is loaded, so a plain run never imports it."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def is_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor split or partially summed over its
+    device mesh.  A plain tensor is not, nor is a DTensor replicated on
+    every device (a mesh of one position holds only those): its ops run
+    as a plain tensor's would."""
+    return is_dtensor(x) and not all(p.is_replicate()
+                                      for p in x.placements)
+
+
+def distribute(t: torch.Tensor, sharding: NamedSharding, device_mesh):
+    """``t``'s shape laid out by ``sharding`` as a DTensor over
+    ``device_mesh`` (a ``DeviceMesh`` with ``sharding.mesh``'s shape and
+    axis names): the local shard is a new ``meta`` tensor of the block
+    ``NamedSharding.indices`` gives mesh position 0, so nothing is
+    allocated; ``t`` itself is not read."""
+    from torch.distributed.tensor import DTensor
+
+    block = sharding.indices(t.shape, (0,) * len(sharding.mesh.axis_names))
+    local = torch.empty([s.stop - s.start for s in block], dtype=t.dtype,
+                        device="meta")
+    return DTensor.from_local(local, device_mesh, sharding.placements(t.ndim),
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
 
 # ----------------------------------------------------------------- rules
 @dataclasses.dataclass(frozen=True)
@@ -332,9 +385,9 @@ def slot_axis(num_slots: int, mesh: Mesh,
 # ------------------------------------------------- activation constraints
 # The reference's model code calls ``constrain(x, logical_axes)`` at key
 # activation points so that XLA's propagation keeps the intended layout
-# inside an ``activation_sharding`` context.  One PyTorch process places
-# no activation: ``constrain`` is the identity under any mesh, and the
-# port's models make no such calls.
+# inside an ``activation_sharding`` context.  The port's models call it at
+# the same points: a plain tensor passes unchanged, a DTensor is
+# redistributed.
 
 _act_ctx = threading.local()
 
@@ -350,8 +403,280 @@ def activation_sharding(mesh: Mesh, rules: Optional[PartitionRules] = None):
 
 
 def constrain(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
-    """``x`` itself, in and outside an ``activation_sharding`` context."""
-    return x
+    """``x`` laid out as its logical ``axes`` name under the
+    ``activation_sharding`` context's mesh and rules when ``x`` is a
+    DTensor (redistributed over its own device mesh); ``x`` itself when it
+    is a plain tensor or outside a context."""
+    ctx = getattr(_act_ctx, "val", None)
+    if ctx is None or not is_dtensor(x):
+        return x
+    mesh, rules = ctx
+    sharding = NamedSharding(mesh, spec_for(x.shape, axes, mesh, rules))
+    return x.redistribute(x.device_mesh, sharding.placements(x.ndim))
+
+
+def unshard_batch_axes(tree: Tree) -> Tree:
+    """``tree`` with each DTensor leaf gathered over the mesh axes of the
+    ``batch`` rule (the FSDP split of params over ``data``, and ``pod``):
+    what one block holds while it runs, as the reference's sharded params
+    are gathered for their layer.  Its backward reduce-scatters the
+    gradients back.  Plain leaves, or no ``activation_sharding`` context,
+    pass unchanged."""
+    ctx = getattr(_act_ctx, "val", None)
+    if ctx is None:
+        return tree
+    mesh, rules = ctx
+    dp = [mesh.axis_names.index(a) for a in rules.table.get("batch", ())
+          if a in mesh.axis_names]
+
+    def gather(x):
+        if not is_sharded(x) or not any(x.placements[d].is_shard()
+                                         for d in dp):
+            return x
+        from torch.distributed.tensor import Replicate
+
+        pl = [Replicate() if d in dp else p for d, p in enumerate(x.placements)]
+        return x.redistribute(x.device_mesh, pl)
+
+    return _map_leaves(gather, tree, lambda t: isinstance(t, torch.Tensor))
+
+
+def constrain_like(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s placements when both are DTensors (a gradient
+    reduced into its parameter's layout, as the reference's sharded
+    parameters pull their gradients); ``x`` itself otherwise."""
+    if not (is_dtensor(x) and is_dtensor(like)):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: Sequence[int]
+              ) -> torch.Tensor:
+    """``x`` with dim ``dim`` split into ``sizes``.  A DTensor first
+    gathers that dim over each mesh axis whose split its leading size
+    does not divide (DTensor has no rule to unflatten it: 24 heads over 16
+    devices); a plain tensor is reshaped as it is."""
+    dim %= x.ndim
+    if is_sharded(x):
+        from torch.distributed.tensor import Replicate
+
+        placements, split = list(x.placements), 1
+        for d, pl in enumerate(placements):
+            if pl.is_shard(dim):
+                split *= x.device_mesh.size(d)
+                if sizes[0] % split:
+                    placements[d] = Replicate()
+        if placements != list(x.placements):
+            x = x.redistribute(x.device_mesh, placements)
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def merge_dims(x: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """``x`` with dims ``start`` .. ``end`` (inclusive) flattened into one.
+    A DTensor split along ``start`` keeps that split on the merged dim
+    (each block is contiguous in it), done shard by shard: DTensor's own
+    flatten marks such a split strided, and every later op over a strided
+    split plans its redistributions by a search that grows with the
+    mesh's rank.  A split of an inner dim is gathered first."""
+    shape = (*x.shape[:start], math.prod(x.shape[start:end + 1]),
+             *x.shape[end + 1:])
+    if not is_sharded(x):
+        return x.reshape(shape)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    cut = end - start
+    placements = [Replicate() if p.is_shard() and start < p.dim <= end
+                  else p for p in x.placements]
+    if placements != list(x.placements):
+        x = x.redistribute(x.device_mesh, placements)
+    local = x.to_local()
+    local = local.reshape(*local.shape[:start], -1, *local.shape[end + 1:])
+    merged = [Shard(p.dim - cut) if p.is_shard() and p.dim > end else p
+              for p in placements]
+    return DTensor.from_local(local, x.device_mesh, merged, run_check=False)
+
+
+def pad(x: torch.Tensor, widths: Sequence[int], value: float = 0.0
+        ) -> torch.Tensor:
+    """``F.pad(x, widths, value=value)``; a DTensor is padded shard by
+    shard, each padded dim first gathered whole, its other splits kept
+    (DTensor's own pad rule is missing or wrong in some torch builds)."""
+    if not is_dtensor(x):
+        return torch.nn.functional.pad(x, widths, value=value)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    padded = {x.ndim - 1 - i // 2 for i, w in enumerate(widths) if w}
+    placements = [Replicate() if p.is_shard() and p.dim in padded else p
+                  for p in x.placements]
+    if placements != list(x.placements):
+        x = x.redistribute(x.device_mesh, placements)
+    local = torch.nn.functional.pad(x.to_local(), widths, value=value)
+    return DTensor.from_local(local, x.device_mesh, placements,
+                              run_check=False)
+
+
+def block_start(x: torch.Tensor, axes: Sequence[Optional[str]],
+                dim: int) -> int:
+    """Where this device's block of dim ``dim`` starts when ``x`` (a
+    DTensor) is laid out as its logical ``axes`` name under the
+    ``activation_sharding`` context."""
+    mesh, rules = _act_ctx.val
+    sharding = NamedSharding(mesh, spec_for(x.shape, axes, mesh, rules))
+    return sharding.indices(x.shape, x.device_mesh.get_coordinate())[dim].start
+
+
+def project(x: torch.Tensor, w: torch.Tensor,
+            axes: Sequence[Optional[str]]) -> torch.Tensor:
+    """x's last dim contracted with w's first, w's other dims appended
+    (``einsum("ble,ehd->blhd")``), as a matmul with w's other dims
+    flattened; ``axes`` names the result's dims.  Over DTensors that
+    result is laid out as ``constrain`` lays out ``axes`` (a split of the
+    flattened dim's inner factors is dropped) before it unflattens: the
+    unflatten fails whenever DTensor has sharded the flattened dim over
+    more devices than its leading factor has rows (56 heads over 16).  A
+    3-d w split along its last dim runs one product a row of its middle
+    dim, as flattening it would gather w whole."""
+    if is_dtensor(w) and w.ndim == 3 and any(pl.is_shard(2)
+                                             for pl in w.placements):
+        return torch.stack([x @ w[:, i] for i in range(w.shape[1])], -2)
+    out = tuple(w.shape[1:])
+    y = x @ w.reshape(w.shape[0], -1)
+    ctx = getattr(_act_ctx, "val", None)
+    if ctx is not None and is_dtensor(y):
+        from torch.distributed.tensor import Replicate
+
+        mesh, rules = ctx
+        lead = y.ndim - 1
+        full = (*y.shape[:-1], *out)
+        placements = [
+            Replicate() if pl.is_shard() and pl.dim > lead else pl
+            for pl in NamedSharding(mesh, spec_for(full, axes, mesh, rules)
+                                    ).placements(len(full))]
+        y = y.redistribute(y.device_mesh, placements)
+    return y.reshape(*y.shape[:-1], *out)
+
+
+def local_leaves(tree: Tree) -> Tree:
+    """``tree`` with each DTensor leaf replaced by its local shard (other
+    leaves as they are): for work that runs on each device's block alone,
+    such as an elementwise update of tensors laid out alike."""
+    return _map_leaves(lambda x: x.to_local() if is_dtensor(x) else x, tree,
+                       lambda t: isinstance(t, torch.Tensor))
+
+
+def laid_out_like(make, like: torch.Tensor) -> torch.Tensor:
+    """``make(like.shape)``, a plain tensor made for ``like`` (a fill or a
+    draw); when ``like`` is a DTensor, ``make`` of its local shape as a
+    DTensor of its placements instead, so what the step makes per element
+    of ``like`` is sharded as ``like`` is and not replicated whole on
+    every device (a partial sum's layout counts as replicated)."""
+    if not is_sharded(like):
+        return make(like.shape)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    placements = [Replicate() if p.is_partial() else p
+                  for p in like.placements]
+    return DTensor.from_local(make(like.to_local().shape), like.device_mesh,
+                              placements, run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
+def run_local(fn, args: Sequence[Any], axes: Sequence[Any],
+              out_shape: Sequence[Any], out_axes: Sequence[Any],
+              summed: Optional[Tuple[int, int]] = None):
+    """``fn(*args)``, one device's share of it when an arg is a DTensor:
+    each tensor arg is laid out as its logical ``axes`` name (a plain one
+    counts as replicated; ``None`` leaves an arg as it is), ``fn`` runs on
+    the local shards, and its result, of global shape ``out_shape``, is a
+    DTensor laid out as ``out_axes`` (a ``fn`` that returns a tuple takes
+    a shape and axes for each result).  ``summed`` = (arg, dim): ``fn``
+    sums over that dim of that arg, so its result is a partial sum over
+    the mesh axes that split the dim.  For a computation whose sharded
+    dims are independent (attention over batch and heads), so each device
+    computes its block alone: DTensor would otherwise plan its batched
+    products over a flattened dim split two ways, a strategy search that
+    grows with the mesh's rank.  Without a DTensor arg or an
+    ``activation_sharding`` context, ``fn(*args)``."""
+    ctx = getattr(_act_ctx, "val", None)
+    dtensors = [a for a in args if is_dtensor(a)]
+    if ctx is None or not dtensors:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, rules = ctx
+    dm = dtensors[0].device_mesh
+    arg_placements = [
+        None if ax is None else NamedSharding(
+            mesh, spec_for(a.shape, ax, mesh, rules)).placements(a.ndim)
+        for a, ax in zip(args, axes)]
+    # the mesh axes the work is split over: an arg whole on one of them
+    # gets a partial sum of its gradient from each device
+    split = {d for pl in arg_placements if pl is not None
+             for d, p in enumerate(pl) if p.is_shard()}
+    local = []
+    for a, pl in zip(args, arg_placements):
+        if pl is None:
+            local.append(a)
+            continue
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, dm, [Replicate()] * dm.ndim,
+                                   run_check=False)
+        grad_pl = [Partial() if p.is_replicate() and d in split else p
+                   for d, p in enumerate(pl)]
+        local.append(a.redistribute(dm, pl).to_local(
+            grad_placements=grad_pl))
+    out = fn(*local)
+
+    def wrap(t, shape, axes):
+        pl = NamedSharding(mesh, spec_for(shape, axes, mesh, rules)
+                           ).placements(t.ndim)
+        if summed is not None:
+            pl = [Partial() if p.is_shard(summed[1]) else q for p, q in
+                  zip(arg_placements[summed[0]], pl)]
+        # the global shape and strides follow from the even split
+        out = DTensor.from_local(t, dm, pl, run_check=False)
+        assert out.shape == torch.Size(shape), (out.shape, shape)
+        return out
+
+    if isinstance(out, tuple):
+        return tuple(wrap(*o) for o in zip(out, out_shape, out_axes))
+    return wrap(out, out_shape, out_axes)
+
+
+def local_rows(cache: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
+               new: torch.Tensor):
+    """The pieces of the row write ``cache[b, slot[b]] = new[b]`` that one
+    device does on a DTensor ``cache`` (B, S, ...): its local shard, the
+    local batch index (``bidx``, an arange, cut to the shard's rows), the
+    slots (moved to the shard's rows when the cache's rows are split, a
+    slot outside them moved to its end, where the write drops it), and
+    ``new`` (B, 1, ...) laid out like the cache but whole along the
+    rows."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache.device_mesh
+    rows = [Replicate() if p == Shard(1) else p for p in cache.placements]
+    batch = [p if p == Shard(0) else Replicate() for p in cache.placements]
+
+    def local(x, placements):
+        if not is_dtensor(x):
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(mesh, placements).to_local()
+
+    part = cache.to_local()
+    slot = local(slot, batch)
+    if rows != list(cache.placements):
+        n = part.shape[1]
+        coord = mesh.get_coordinate()
+        start = 0
+        for d, p in enumerate(cache.placements):
+            if p == Shard(1):
+                start = start * mesh.size(d) + coord[d]
+        start *= n
+        slot = torch.where((slot >= start) & (slot < start + n),
+                           slot - start, n)
+    return part, bidx[:part.shape[0]], slot, local(new, rows)
 
 
 # ----------------------------------------------------------- cache axes

@@ -18,10 +18,15 @@ and return it.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.partitioning import (constrain, is_dtensor,
+                                                  local_rows, merge_dims, pad,
+                                                  project, run_local,
+                                                  unflatten)
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -176,6 +181,17 @@ def attend_chunked(
     return (acc / l_sum).to(v.dtype)
 
 
+def _local_attend(attend, q, k, v, q_pos, kv_pos, **kw):
+    """``attend(q, k, v, q_pos, kv_pos, **kw)`` for q (B, Lq, Kv, G, D)
+    and k, v (B, Lk, Kv, D); over DTensors each device attends its batch
+    and kv-head block (``partitioning.run_local``)."""
+    return run_local(
+        functools.partial(attend, **kw), (q, k, v, q_pos, kv_pos),
+        (("batch", None, "kv", None, None), ("batch", None, "kv", None),
+         ("batch", None, "kv", None), ("batch", None), ("batch", None)),
+        (*q.shape[:-1], v.shape[-1]), ("batch", None, "kv", None, None))
+
+
 def _attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, scale: float):
     window = cfg.window if cfg.attention_kind in ("swa", "local") else None
     impl = cfg.attn_impl
@@ -183,19 +199,50 @@ def _attend(q, k, v, q_pos, kv_pos, cfg: ModelConfig, scale: float):
         impl = "chunked" if k.shape[1] >= 8192 else "full"
     kw = dict(window=window, scale=scale, softcap=cfg.attn_logit_softcap)
     if impl == "chunked":
-        return attend_chunked(q, k, v, q_pos, kv_pos, chunk=cfg.attn_chunk,
-                              unroll=cfg.attn_chunk_unroll, **kw)
-    return attend_full(q, k, v, q_pos, kv_pos, **kw)
+        return _local_attend(attend_chunked, q, k, v, q_pos, kv_pos,
+                             chunk=cfg.attn_chunk,
+                             unroll=cfg.attn_chunk_unroll, **kw)
+    return _local_attend(attend_full, q, k, v, q_pos, kv_pos, **kw)
 
 
 def _is_ring(cfg: ModelConfig) -> bool:
     return bool(cfg.attention_kind in ("swa", "local") and cfg.window)
 
 
+def _pad_seq(t: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """``t`` (B, L, ...) as a cache of ``cache_len`` rows: its rows first,
+    zeros after."""
+    if t.shape[1] > cache_len:
+        raise ValueError(f"{t.shape[1]} rows do not fit a cache of "
+                         f"{cache_len}")
+    return pad(t, (0, 0) * (t.ndim - 2) + (0, cache_len - t.shape[1]))
+
+
+def _place_ring(t: torch.Tensor, slots: torch.Tensor, W: int,
+                axes) -> torch.Tensor:
+    """The last ``slots.shape[1]`` rows of ``t`` (B, L, ...) placed at
+    their ring ``slots`` (B, take) of a zeroed ring of ``W`` rows; a
+    DTensor is placed shard by shard."""
+    take = slots.shape[1]
+
+    def place(x, s):
+        c = torch.zeros((x.shape[0], W, *x.shape[2:]), dtype=x.dtype,
+                        device=x.device)
+        bidx = torch.arange(x.shape[0], device=x.device)[:, None]
+        return torch.index_put(c, (bidx, s), x[:, -take:])
+
+    return run_local(place, (t, slots), (axes, ("batch", None)),
+                     (t.shape[0], W, *t.shape[2:]), axes)
+
+
 def _write_rows(cache: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
                 new: torch.Tensor) -> None:
     """``cache[b, slot[b]] = new[b]`` in place; a slot past the cache's end
-    drops its write, as the reference's out-of-bounds scatter does."""
+    drops its write, as the reference's out-of-bounds scatter does.  A
+    DTensor cache is written shard by shard (``partitioning.local_rows``)."""
+    if is_dtensor(cache):
+        # each device writes the rows its shard of the cache holds
+        return _write_rows(*local_rows(cache, bidx, slot, new))
     S = cache.shape[1]
     at = torch.clamp(slot, max=S - 1)
     keep = (slot < S).reshape(*slot.shape, *([1] * (new.ndim - 2)))
@@ -205,21 +252,34 @@ def _write_rows(cache: torch.Tensor, bidx: torch.Tensor, slot: torch.Tensor,
 # ================================================================ GQA fwd
 def _project_qkv(p, x, cfg: ModelConfig, positions):
     H, Kv = cfg.num_heads, cfg.num_kv_heads
-    q = torch.einsum("ble,ehd->blhd", x, p["wq"].to(x.dtype))
-    k = torch.einsum("ble,ekd->blkd", x, p["wk"].to(x.dtype))
-    v = torch.einsum("ble,ekd->blkd", x, p["wv"].to(x.dtype))
+    q = project(x, p["wq"].to(x.dtype),
+                ("batch", "act_seq", "heads", "head_dim"))
+    k = project(x, p["wk"].to(x.dtype),
+                ("batch", "act_seq", "kv", "head_dim"))
+    v = project(x, p["wv"].to(x.dtype),
+                ("batch", "act_seq", "kv", "head_dim"))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
+    q = constrain(q, ("batch", "act_seq", "heads", "head_dim"))
+    k = constrain(k, ("batch", "act_seq", "kv", "head_dim"))
+    v = constrain(v, ("batch", "act_seq", "kv", "head_dim"))
     q = layers.apply_rope(q, positions, cfg.rope_theta, cfg.rope_pct)
     k = layers.apply_rope(k, positions, cfg.rope_theta, cfg.rope_pct)
-    return q.reshape(*q.shape[:2], Kv, H // Kv, cfg.head_dim), k, v
+    return unflatten(q, 2, (Kv, H // Kv)), k, v
+
+
+def _heads_out(o, wo):
+    """``einsum("blhd,hde->ble")`` as a matmul over (h, d) merged, shard
+    by shard over DTensors (``partitioning.merge_dims``)."""
+    return merge_dims(o, 2, 3) @ merge_dims(wo, 0, 1)
 
 
 def _out_proj(p, o, x, cfg: ModelConfig):
     o = o.reshape(*x.shape[:2], cfg.num_heads, cfg.head_dim)
-    return torch.einsum("blhd,hde->ble", o, p["wo"].to(x.dtype))
+    o = constrain(o, ("batch", "act_seq", "heads", "head_dim"))
+    return _heads_out(o, p["wo"].to(x.dtype))
 
 
 def gqa_forward(p, x: torch.Tensor, positions: torch.Tensor,
@@ -236,31 +296,22 @@ def gqa_prefill(p, x, positions, cfg: ModelConfig, cache_len: int):
     o = _attend(q, k, v, positions, positions, cfg, cfg.head_dim ** -0.5)
     out = _out_proj(p, o, x, cfg)
 
-    B, L = x.shape[0], x.shape[1]
+    L = x.shape[1]
     parts = {"k": k, "v": v}
     if cfg.kv_cache_quant:
         kq, ks = kv_quantize(k)
         vq, vs = kv_quantize(v)
         parts = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    axes = {"k": ("batch", None, "kv", "head_dim"),
+            "k_scale": ("batch", None, "kv")}
+    axes["v"], axes["v_scale"] = axes["k"], axes["k_scale"]
     if _is_ring(cfg):
         W = min(cfg.window, cache_len)
         # keep the last W entries, placed at slot = pos % W
-        take = min(L, W)
-        slots = positions[:, -take:] % W
-        bidx = torch.arange(B, device=x.device)[:, None]
-
-        def place(t):
-            c = torch.zeros((B, W, *t.shape[2:]), dtype=t.dtype,
-                            device=t.device)
-            c[bidx, slots] = t[:, -take:]
-            return c
-    else:
-        def place(t):
-            c = torch.zeros((B, cache_len, *t.shape[2:]), dtype=t.dtype,
-                            device=t.device)
-            c[:, :L] = t
-            return c
-    return out, {name: place(t) for name, t in parts.items()}
+        slots = positions[:, -min(L, W):] % W
+        return out, {name: _place_ring(t, slots, W, axes[name])
+                     for name, t in parts.items()}
+    return out, {name: _pad_seq(t, cache_len) for name, t in parts.items()}
 
 
 def gqa_decode(
@@ -298,9 +349,10 @@ def gqa_decode(
         kv_pos = torch.where(j <= pos[:, None], j, -1)
     kv_pos = torch.where(kv_pos >= 0, kv_pos, -1)
 
-    o = attend_full(
-        q, ck, cv, positions, kv_pos, window=cfg.window if ring else None,
-        scale=cfg.head_dim ** -0.5, softcap=cfg.attn_logit_softcap,
+    o = _local_attend(
+        attend_full, q, ck, cv, positions, kv_pos,
+        window=cfg.window if ring else None, scale=cfg.head_dim ** -0.5,
+        softcap=cfg.attn_logit_softcap,
     )
     return _out_proj(p, o, x, cfg), cache
 
@@ -309,7 +361,9 @@ def gqa_decode(
 def _mla_qkv(p, x, cfg: ModelConfig, positions):
     dn = cfg.qk_nope_head_dim
     cq = _rms(x @ p["q_a"].to(x.dtype), p["q_norm"])
-    q = torch.einsum("blr,rhd->blhd", cq, p["q_b"].to(x.dtype))
+    q = project(cq, p["q_b"].to(x.dtype),
+                ("batch", "act_seq", "heads", "head_dim"))
+    q = constrain(q, ("batch", "act_seq", "heads", "head_dim"))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
     ckv_full = x @ p["kv_a"].to(x.dtype)
@@ -321,7 +375,9 @@ def _mla_qkv(p, x, cfg: ModelConfig, positions):
 
 def _mla_expand_kv(p, c_kv, cfg: ModelConfig):
     dn = cfg.qk_nope_head_dim
-    kv = torch.einsum("bsr,rhd->bshd", c_kv, p["kv_b"].to(c_kv.dtype))
+    kv = project(c_kv, p["kv_b"].to(c_kv.dtype),
+                 ("batch", "act_seq", "heads", "head_dim"))
+    kv = constrain(kv, ("batch", "act_seq", "heads", "head_dim"))
     return kv[..., :dn], kv[..., dn:]  # k_nope (B,S,H,dn), v (B,S,H,dv)
 
 
@@ -334,17 +390,14 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos, cfg,
     if absorb:
         kv_b_k = p["kv_b"][..., :dn]  # (r, H, dn)
         kv_b_v = p["kv_b"][..., dn:]  # (r, H, dv)
-        q_eff = torch.einsum("blhd,rhd->blhr", q_nope,
-                             kv_b_k.to(q_nope.dtype))
-        s = torch.einsum("blhr,bsr->bhls", q_eff.float(), c_kv.float())
-        s = s + torch.einsum("blhd,bsd->bhls", q_rope.float(),
-                             k_rope.float())
-        s = s * scale
-        mask = _mask(q_pos, kv_pos, None)[:, None]
-        s = torch.where(mask, s, NEG_INF)
-        w = torch.softmax(s, dim=-1).to(c_kv.dtype)
-        ctx = torch.einsum("bhls,bsr->blhr", w, c_kv)
-        o = torch.einsum("blhr,rhd->blhd", ctx, kv_b_v.to(ctx.dtype))
+        heads = ("batch", None, "heads", None)
+        o = run_local(
+            functools.partial(_mla_absorbed, scale=scale),
+            (q_nope, q_rope, c_kv, k_rope, kv_b_k, kv_b_v, q_pos, kv_pos),
+            (heads, heads, ("batch", None, None), ("batch", None, None),
+             (None, "heads", None), (None, "heads", None), ("batch", None),
+             ("batch", None)),
+            (*q_nope.shape[:-1], kv_b_v.shape[-1]), heads)
     else:
         k_nope, v = _mla_expand_kv(p, c_kv, cfg)
         B, S = k_rope.shape[0], k_rope.shape[1]
@@ -352,11 +405,26 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos, cfg,
         k = torch.cat([k_nope, k_rope_h], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
         # MLA has no KV grouping: Kv = H, G = 1
-        o = attend_full(
-            q[:, :, :, None, :], k, v, q_pos, kv_pos,
+        o = _local_attend(
+            attend_full, q[:, :, :, None, :], k, v, q_pos, kv_pos,
             window=None, scale=scale,
         )[:, :, :, 0, :]
-    return torch.einsum("blhd,hde->ble", o, p["wo"].to(o.dtype))
+    return _heads_out(o, p["wo"].to(o.dtype))
+
+
+def _mla_absorbed(q_nope, q_rope, c_kv, k_rope, kv_b_k, kv_b_v, q_pos,
+                  kv_pos, scale: float):
+    """MLA attention against the latent cache itself (the absorbed
+    decode form): score and context computed against c_kv directly."""
+    q_eff = torch.einsum("blhd,rhd->blhr", q_nope, kv_b_k.to(q_nope.dtype))
+    s = torch.einsum("blhr,bsr->bhls", q_eff.float(), c_kv.float())
+    s = s + torch.einsum("blhd,bsd->bhls", q_rope.float(), k_rope.float())
+    s = s * scale
+    mask = _mask(q_pos, kv_pos, None)[:, None]
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(c_kv.dtype)
+    ctx = torch.einsum("bhls,bsr->blhr", w, c_kv)
+    return torch.einsum("blhr,rhd->blhd", ctx, kv_b_v.to(ctx.dtype))
 
 
 def mla_forward(p, x, positions, cfg: ModelConfig, absorb: bool = False):
@@ -372,14 +440,8 @@ def mla_prefill(p, x, positions, cfg: ModelConfig, cache_len: int,
     out = _mla_attend(
         p, q_nope, q_rope, c_kv, k_rope, positions, positions, cfg, absorb
     )
-    B, L = x.shape[0], x.shape[1]
-    ckv_c = torch.zeros((B, cache_len, cfg.kv_lora_rank), dtype=c_kv.dtype,
-                        device=x.device)
-    krope_c = torch.zeros((B, cache_len, cfg.qk_rope_head_dim),
-                          dtype=k_rope.dtype, device=x.device)
-    ckv_c[:, :L] = c_kv
-    krope_c[:, :L] = k_rope
-    return out, {"c_kv": ckv_c, "k_rope": krope_c}
+    return out, {"c_kv": _pad_seq(c_kv, cache_len),
+                 "k_rope": _pad_seq(k_rope, cache_len)}
 
 
 def mla_decode(p, x, pos, cache, cfg: ModelConfig, absorb: bool = True):

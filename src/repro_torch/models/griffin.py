@@ -17,11 +17,13 @@ elementwise merge, linear out.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partitioning import constrain, pad, run_local
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -52,8 +54,13 @@ def rglru_block_init(init: Init, cfg: ModelConfig):
 def _rglru_gates(p, x: torch.Tensor, cfg: ModelConfig):
     """x: (..., R) conv output -> (log_a, beta_x) with
     beta_x = sqrt(1 - a^2) * i_t * x, both float32."""
-    r = torch.sigmoid(x @ p["w_a"].to(x.dtype) + p["b_a"].to(x.dtype))
-    i = torch.sigmoid(x @ p["w_gx"].to(x.dtype) + p["b_gx"].to(x.dtype))
+    # the products laid out as their biases are before the adds: torch
+    # 2.11's DTensor cannot add a split bias to a partial sum
+    lru = ("batch", "lru") if x.ndim == 2 else ("batch", "act_seq", "lru")
+    r = torch.sigmoid(constrain(x @ p["w_a"].to(x.dtype), lru)
+                      + p["b_a"].to(x.dtype))
+    i = torch.sigmoid(constrain(x @ p["w_gx"].to(x.dtype), lru)
+                      + p["b_gx"].to(x.dtype))
     log_a = -cfg.rglru_c * F.softplus(p["lambda_raw"].float()) * r.float()
     a2 = torch.exp(2.0 * log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a2, 1e-9, 1.0))
@@ -88,10 +95,12 @@ def rglru_block_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
                         conv0=None, return_state: bool = False):
     """Full recurrent block.  x: (B, L, E) -> (B, L, E)."""
     y = layers.gelu(x @ p["w_y"].to(x.dtype))
+    y = constrain(y, ("batch", "act_seq", "lru"))
     u = x @ p["w_in"].to(x.dtype)  # (B, L, R)
+    u = constrain(u, ("batch", "act_seq", "lru"))
     W = p["conv_w"].shape[0]
     if conv0 is None:
-        up = F.pad(u, (0, 0, W - 1, 0))
+        up = pad(u, (0, 0, W - 1, 0))
     else:
         up = torch.cat([conv0.to(u.dtype), u], dim=1)
     cw = p["conv_w"].to(x.dtype)
@@ -124,7 +133,10 @@ def rglru_block_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     y = layers.gelu(xt @ p["w_y"].to(x.dtype))
     u = xt @ p["w_in"].to(x.dtype)  # (B, R)
     window = torch.cat([cache["conv"].to(u.dtype), u[:, None]], dim=1)
-    uc = torch.einsum("bwr,wr->br", window, p["conv_w"].to(x.dtype))
+    uc = run_local(functools.partial(torch.einsum, "bwr,wr->br"),
+                   (window, p["conv_w"].to(x.dtype)),
+                   (("batch", None, "lru"), (None, "lru")),
+                   (window.shape[0], window.shape[2]), ("batch", "lru"))
     log_a, bx = _rglru_gates(p, uc, cfg)
     h = torch.exp(log_a) * cache["h"] + bx
     out = ((h.to(x.dtype) * y) @ p["w_out"].to(x.dtype))[:, None]

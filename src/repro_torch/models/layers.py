@@ -15,6 +15,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partitioning import constrain
+
 
 class Init:
     """Where and how a model's parameters are drawn.
@@ -174,6 +176,7 @@ def apply_mlp(p, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = gelu(up)
     else:
         raise ValueError(kind)
+    h = constrain(h, ("batch", "act_seq", "mlp"))
     return h @ p["w_down"].to(x.dtype)
 
 

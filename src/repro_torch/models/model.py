@@ -24,8 +24,13 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import quant
+from repro_torch.distributed.partitioning import (block_start, constrain,
+                                                  is_sharded, project,
+                                                  run_local,
+                                                  unshard_batch_axes)
 from repro_torch.models import layers, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -84,6 +89,40 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Tree:
             raise ValueError(f"{n}: {tuple(a.shape)} {a.dtype}, want "
                              f"{tuple(w.shape)} {w.dtype}")
     return got
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; over DTensors each device looks up the rows its
+    block of the table holds (zeros for the others; a split vocab makes
+    the result a partial sum over that split).  DTensor's own indexing
+    rules fail here in some torch builds."""
+    if not (is_sharded(table) or is_sharded(tokens)):
+        return table[tokens]
+    axes = ("vocab", None)
+    start = block_start(table, axes, 0)
+
+    def rows(t, ids):
+        ids = ids - start
+        hit = (ids >= 0) & (ids < t.shape[0])
+        got = F.embedding(torch.clamp(ids, 0, t.shape[0] - 1), t)
+        return got * hit[..., None].to(t.dtype)
+
+    batch = ("batch",) + (None,) * (tokens.ndim - 1)
+    return run_local(rows, (table, tokens), (axes, batch),
+                     (*tokens.shape, table.shape[1]), batch + (None,),
+                     summed=(0, 0))
+
+
+def _target_logp(logp: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """``logp`` at each target along its last dim: a gather.  Over a
+    DTensor the same values come from a mask over the vocab, whose
+    backward keeps ``logp``'s sharding (a gather's backward scatters into
+    zeros of the global shape, which DTensor replicates on every
+    device)."""
+    if is_sharded(logp):
+        vocab = torch.arange(logp.shape[-1], device=tgt.device)
+        return torch.sum(torch.where(vocab == tgt[..., None], logp, 0.0), -1)
+    return torch.gather(logp, -1, tgt[..., None])[..., 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,13 +187,14 @@ class Model:
         tokens = tokens.long()
         if cfg.num_codebooks:
             # tokens (B, L, K) -> sum of per-codebook embeddings
-            table = p["embed"]["table"]
+            table = unshard_batch_axes(p["embed"]["table"])
             x = torch.zeros((*tokens.shape[:2], cfg.d_model), dtype=cdt,
                             device=table.device)
             for k in range(cfg.num_codebooks):
-                x = x + table[k][tokens[..., k]].to(cdt)
+                x = x + _lookup(table[k], tokens[..., k]).to(cdt)
         else:
-            x = p["embed"]["table"][tokens].to(cdt)
+            x = _lookup(unshard_batch_axes(p["embed"]["table"]),
+                        tokens).to(cdt)
         if cfg.emb_scale is not None:
             x = x * _round(cfg.emb_scale, cdt)
         return x
@@ -163,7 +203,8 @@ class Model:
         """Token (+ frontend) embeddings -> (B, L_total, E)."""
         x = self._embed_tokens(p, batch["tokens"])
         if self.cfg.num_image_tokens:
-            img = batch["img_embeds"].to(x.dtype) @ p["img_proj"].to(x.dtype)
+            img = (batch["img_embeds"].to(x.dtype)
+                   @ unshard_batch_axes(p["img_proj"]).to(x.dtype))
             x = torch.cat([img, x], dim=1)
         return x
 
@@ -213,7 +254,8 @@ class Model:
             x, aux = transformer.group_forward(p[gname], x, positions, cfg,
                                                pattern)
             aux_total = aux_total + aux
-        x = layers.apply_norm(p["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        x = layers.apply_norm(unshard_batch_axes(p["final_norm"]), x,
+                              cfg.norm_kind, cfg.norm_eps)
         return x, aux_total
 
     def _head(self, p, h: torch.Tensor) -> torch.Tensor:
@@ -222,13 +264,15 @@ class Model:
         if cfg.num_codebooks:
             w = (p["embed"]["table"].permute(2, 0, 1) if cfg.tie_embeddings
                  else p["lm_head"])  # (E, K, Vp)
-            logits = torch.einsum("...e,ekv->...kv", h, w.to(h.dtype))
+            logits = project(h, unshard_batch_axes(w).to(h.dtype),
+                             ("batch", "act_seq", "codebook", "vocab"))
             if cfg.logit_softcap is not None:
                 logits = cfg.logit_softcap * torch.tanh(
                     logits.float() / cfg.logit_softcap)
         else:
             w = p["embed"]["table"].T if cfg.tie_embeddings else p["lm_head"]
-            logits = layers.unembed(w, h, cfg.logit_softcap)
+            logits = layers.unembed(unshard_batch_axes(w), h,
+                                    cfg.logit_softcap)
         if cfg.padded_vocab != cfg.vocab_size:
             valid = torch.arange(cfg.padded_vocab,
                                  device=logits.device) < cfg.vocab_size
@@ -261,12 +305,14 @@ class Model:
         vocab in float32 plus the MoE aux term; reads the host nowhere.
         Metrics are 0-dim tensors on the device, detached."""
         logits, aux = self._forward(p, batch)
-        logits = logits.float()
+        cb = ("codebook",) if self.cfg.num_codebooks else ()
+        logits = constrain(logits.float(),
+                           ("batch", "act_seq") + cb + ("vocab",))
         targets = batch["targets"]
         mask = (targets >= 0).float()
         logp = torch.log_softmax(logits, dim=-1)
         tgt = torch.clamp(targets, min=0).long()
-        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        nll = -_target_logp(logp, tgt)
         tokens = torch.sum(mask)
         ce = torch.sum(nll * mask) / torch.clamp(tokens, min=1.0)
         loss = ce + 0.01 * aux / max(self.cfg.num_layers, 1)
@@ -290,7 +336,8 @@ class Model:
             x, cache[gname] = transformer.group_prefill(
                 p[gname], x, positions, cfg, pattern, cache_len
             )
-        x = layers.apply_norm(p["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        x = layers.apply_norm(unshard_batch_axes(p["final_norm"]), x,
+                              cfg.norm_kind, cfg.norm_eps)
         logits = self._head(p, x[:, -1:])[:, 0]
         return logits.float(), cache
 
@@ -307,7 +354,8 @@ class Model:
         for gname, pattern, _ in transformer.layer_plan(cfg):
             x, _ = transformer.group_decode(p[gname], x, pos, cache[gname],
                                             cfg, pattern)
-        x = layers.apply_norm(p["final_norm"], x, cfg.norm_kind, cfg.norm_eps)
+        x = layers.apply_norm(unshard_batch_axes(p["final_norm"]), x,
+                              cfg.norm_kind, cfg.norm_eps)
         logits = self._head(p, x)[:, 0]
         return logits.float(), cache
 

@@ -9,12 +9,15 @@ fixed by the token count and the config, as in the reference.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partitioning import (constrain, merge_dims,
+                                                  run_local, unflatten)
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -63,6 +66,24 @@ def router_weights(logits: torch.Tensor,
     return w, idx
 
 
+def _experts(xg, dispatch, combine, w_up, w_gate, w_down, mlp_kind: str):
+    """Each expert's MLP on its capacity slots, combined back per token:
+    (G, Gs, D) -> (G, Gs, D)."""
+    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)  # (G, E, C, D)
+    xe = constrain(xe, ("batch", "expert", "cap", "embed_act"))
+    h_up = torch.einsum("gecd,edf->gecf", xe, w_up)
+    if mlp_kind in ("swiglu", "geglu"):
+        h_gate = torch.einsum("gecd,edf->gecf", xe, w_gate)
+        act = F.silu if mlp_kind == "swiglu" else layers.gelu
+        h = act(h_gate) * h_up
+    else:
+        h = layers.gelu(h_up)
+    h = constrain(h, ("batch", "expert", "cap", "mlp"))
+    ye = torch.einsum("gecf,efd->gecd", h, w_down)
+    ye = constrain(ye, ("batch", "expert", "cap", "embed_act"))
+    return torch.einsum("gecd,gsec->gsd", ye, combine)  # (G, Gs, D)
+
+
 def moe_forward(p, x: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, E) -> (out (B, S, E), aux metrics)."""
@@ -72,7 +93,9 @@ def moe_forward(p, x: torch.Tensor,
     Gs = group_size(cfg, T)
     G = T // Gs
     C = capacity(Gs, cfg)
-    xg = x.reshape(G, Gs, D)
+    # batch-major flatten: sharding propagates
+    xg = unflatten(merge_dims(x, 0, 1), 0, (G, Gs))
+    xg = constrain(xg, ("batch", "act_seq", "embed_act"))
 
     logits = xg @ p["router"].to(x.dtype)  # (G, Gs, N)
     w, idx = router_weights(logits, cfg)  # (G, Gs, K) f32 / int
@@ -93,18 +116,24 @@ def moe_forward(p, x: torch.Tensor,
         "gske,gskc,gsk->gsec", onehot.float(), slot_oh.float(), w
     ).to(x.dtype)
 
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)  # (G, E, C, D)
-    h_up = torch.einsum("gecd,edf->gecf", xe, p["w_up"].to(x.dtype))
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        h_gate = torch.einsum("gecd,edf->gecf", xe, p["w_gate"].to(x.dtype))
-        act = F.silu if cfg.mlp_kind == "swiglu" else layers.gelu
-        h = act(h_gate) * h_up
-    else:
-        h = layers.gelu(h_up)
-    ye = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(x.dtype))
-
-    out = torch.einsum("gecd,gsec->gsd", ye, combine)  # (G, Gs, D)
-    out = out.reshape(B, S, D)
+    w_gate = (p["w_gate"].to(x.dtype)
+              if cfg.mlp_kind in ("swiglu", "geglu") else None)
+    # over DTensors each device runs the experts of its shard on its groups
+    # and sums their part of each token's output (partial over experts)
+    experts = ("expert", None, None)
+    out = run_local(
+        functools.partial(_experts, mlp_kind=cfg.mlp_kind),
+        (xg, dispatch, combine, p["w_up"].to(x.dtype), w_gate,
+         p["w_down"].to(x.dtype)),
+        (("batch", None, None), ("batch", None, "expert", None),
+         ("batch", None, "expert", None), experts,
+         None if w_gate is None else experts, experts),
+        xg.shape, ("batch", None, None), summed=(1, 2))  # (G, Gs, D)
+    # DTensor has no rule to unflatten a group dim sharded two ways, in
+    # either direction: both sides of the reshape are laid out explicitly
+    out = constrain(out, ("batch", "act_seq", "embed_act"))
+    out = constrain(unflatten(merge_dims(out, 0, 1), 0, (B, S)),
+                    ("batch", "act_seq", "embed_act"))
 
     # load-balancing auxiliaries (Switch aux loss)
     me = torch.mean(onehot.float().sum(2).reshape(T, N), dim=0)

@@ -13,12 +13,15 @@ convs), in the reference's layout.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.partitioning import (constrain, merge_dims,
+                                                  pad, run_local, unflatten)
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -61,11 +64,18 @@ def _repeat(t: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
     return out.flatten(dim, dim + 1)
 
 
+def _flat_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., E) times w (E, G, N), its last two dims flattened:
+    (..., G * N).  Over DTensors w is flattened shard by shard, so the
+    product never unflattens a split dim."""
+    return x @ merge_dims(w, 1, 2)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv along axis 1.  x: (B, L, D), w: (W, D)."""
     W = w.shape[0]
     L = x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    xp = pad(x, (0, 0, W - 1, 0))
     out = xp[:, 0:L, :] * w[0][None, None, :]
     for i in range(1, W):
         out = out + xp[:, i: i + L, :] * w[i][None, None, :]
@@ -141,8 +151,23 @@ def ssd_chunked(
     return y, h
 
 
+def _local_ssd(xdt, dA, Bm, Cm, chunk: int, h0=None):
+    """``ssd_chunked``; over DTensors each device scans its batch block
+    (and its heads, when one group serves them all)."""
+    B, L, H, P = xdt.shape
+    N = Bm.shape[3]
+    heads = "heads" if Bm.shape[2] == 1 else None
+    return run_local(
+        lambda *a: ssd_chunked(*a[:4], chunk, a[4]), (xdt, dA, Bm, Cm, h0),
+        (("batch", None, heads, None), ("batch", None, heads),
+         ("batch", None, None, None), ("batch", None, None, None),
+         None if h0 is None else ("batch", heads, None, None)),
+        ((B, L, H, P), (B, H, P, N)),
+        (("batch", None, heads, None), ("batch", heads, None, None)))
+
+
 def _split_heads(t: torch.Tensor, H: int, P: int) -> torch.Tensor:
-    return t.reshape(*t.shape[:-1], H, P)
+    return unflatten(t, -1, (H, P))
 
 
 def _gated_norm(y, z, p, dtype):
@@ -159,8 +184,8 @@ def _streams(p, x):
     """The pre-conv x, B and C streams (B, L, ·) of the block input."""
     B, L, _ = x.shape
     xs = x @ p["w_x"].to(x.dtype)
-    Bs = torch.einsum("ble,egn->blgn", x, p["w_B"].to(x.dtype)).reshape(B, L, -1)
-    Cs = torch.einsum("ble,egn->blgn", x, p["w_C"].to(x.dtype)).reshape(B, L, -1)
+    Bs = _flat_proj(x, p["w_B"].to(x.dtype))  # (B, L, G * N)
+    Cs = _flat_proj(x, p["w_C"].to(x.dtype))
     return xs, Bs, Cs
 
 
@@ -174,8 +199,11 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
     dt_raw = x @ p["w_dt"].to(x.dtype)  # (B, L, H)
 
     xs = F.silu(_causal_conv(xs, p["conv_x"].to(x.dtype)))
+    xs = constrain(xs, ("batch", "act_seq", "inner"))
     Bs = F.silu(_causal_conv(Bs, p["conv_B"].to(x.dtype))).reshape(B, L, G, N)
     Cs = F.silu(_causal_conv(Cs, p["conv_C"].to(x.dtype))).reshape(B, L, G, N)
+    Bs = constrain(Bs, ("batch", "act_seq", "groups", "state"))
+    Cs = constrain(Cs, ("batch", "act_seq", "groups", "state"))
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B, L, H)
     A = -torch.exp(p["A_log"].float())  # (H,)
@@ -183,7 +211,7 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, h0=None,
 
     xh = _split_heads(xs, H, P)
     xdt = xh.float() * dt[..., None]
-    y, state = ssd_chunked(xdt, dA, Bs, Cs, cfg.ssm_chunk, h0)
+    y, state = _local_ssd(xdt, dA, Bs, Cs, cfg.ssm_chunk, h0)
     y = y + xh.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(B, L, H * P).to(x.dtype)
     out = _gated_norm(y, z, p, x.dtype) @ p["out_proj"].to(x.dtype)
@@ -212,9 +240,21 @@ def _conv_step(cache_part: torch.Tensor, new: torch.Tensor, w: torch.Tensor):
     """One causal-conv step.  cache: (B, W-1, D) previous inputs; the
     window shifts into it in place."""
     window = torch.cat([cache_part.to(new.dtype), new[:, None, :]], dim=1)
-    out = torch.einsum("bwd,wd->bd", window, w)
+    out = run_local(functools.partial(torch.einsum, "bwd,wd->bd"),
+                    (window, w), (("batch", None, None), (None, None)),
+                    (window.shape[0], window.shape[2]), ("batch", None))
     cache_part.copy_(window[:, 1:, :])
     return out
+
+
+def _state_step(state, dA, xh, Bh, dt, Ch):
+    """The SSD state advanced one token in place; returns its readout
+    (B, H, P)."""
+    new = state * dA[..., None, None] + torch.einsum(
+        "bhp,bhn,bh->bhpn", xh, Bh, dt
+    )
+    state.copy_(new)
+    return torch.einsum("bhpn,bhn->bhp", new, Ch)
 
 
 def ssm_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -225,8 +265,8 @@ def ssm_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     xt = x[:, 0]
     z = xt @ p["w_z"].to(x.dtype)
     xs = xt @ p["w_x"].to(x.dtype)
-    Bs = torch.einsum("be,egn->bgn", xt, p["w_B"].to(x.dtype)).reshape(B, G * N)
-    Cs = torch.einsum("be,egn->bgn", xt, p["w_C"].to(x.dtype)).reshape(B, G * N)
+    Bs = _flat_proj(xt, p["w_B"].to(x.dtype))  # (B, G * N)
+    Cs = _flat_proj(xt, p["w_C"].to(x.dtype))
     dt_raw = xt @ p["w_dt"].to(x.dtype)
 
     xs = F.silu(_conv_step(cache["conv_x"], xs, p["conv_x"].to(x.dtype)))
@@ -239,15 +279,17 @@ def ssm_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt * A)  # (B, H)
 
-    xh = xs.reshape(B, H, P).float()
+    xh = unflatten(xs, 1, (H, P)).float()
     rep = H // G
     Bh = _repeat(Bs, rep, 1).float()  # (B, H, N)
     Ch = _repeat(Cs, rep, 1).float()
-    state = cache["state"] * dA[..., None, None] + torch.einsum(
-        "bhp,bhn,bh->bhpn", xh, Bh, dt
-    )
-    cache["state"].copy_(state)
-    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    # over DTensors each device steps its block of the cache's layout
+    heads, hn = ("batch", "heads"), ("batch", "heads", "state")
+    y = run_local(
+        _state_step, (cache["state"], dA, xh, Bh, dt, Ch),
+        (("batch", "heads", "head_dim", "state"), heads,
+         ("batch", "heads", "head_dim"), hn, heads, hn),
+        xh.shape, ("batch", "heads", "head_dim"), summed=(5, 2))
     y = y + xh * p["D"].float()[None, :, None]
     y = y.reshape(B, H * P).to(x.dtype)
     out = (_gated_norm(y, z, p, x.dtype) @ p["out_proj"].to(x.dtype))[:, None, :]

@@ -28,6 +28,8 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch.distributed.partitioning import (constrain, pad,
+                                                  unshard_batch_axes)
 from repro_torch.models import attention, griffin, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -114,6 +116,10 @@ def _apply_ffn(p, h, cfg: ModelConfig, ffn_kind):
 def _ffn_residual(p, x, cfg: ModelConfig, ffn_kind):
     if ffn_kind is None:
         return x, {}
+    # the mixer's output projection leaves a DTensor partial sum over the
+    # model axis; it is reduced here, as GSPMD reduces it at the product,
+    # or the FFN's products would gather their weights to keep it partial
+    x = constrain(x, ("batch", "act_seq", "embed_act"))
     h = layers.apply_norm(p["norm2"], x, cfg.norm_kind, cfg.norm_eps)
     out, aux = _apply_ffn(p, h, cfg, ffn_kind)
     return x + out, aux
@@ -122,7 +128,8 @@ def _ffn_residual(p, x, cfg: ModelConfig, ffn_kind):
 def block_forward(p, x, positions, cfg: ModelConfig, spec):
     """Training / no-cache forward.  Returns (x, aux)."""
     mixer_kind, ffn_kind = spec
-    p = dequant_block_params(p)
+    p = unshard_batch_axes(dequant_block_params(p))
+    x = constrain(x, ("batch", "act_seq", "embed_act"))
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if mixer_kind == "gqa":
         mx = attention.gqa_forward(p["mixer"], h, positions, cfg)
@@ -140,7 +147,8 @@ def block_forward(p, x, positions, cfg: ModelConfig, spec):
 def block_prefill(p, x, positions, cfg: ModelConfig, spec, cache_len):
     """Forward + populate this block's decode cache."""
     mixer_kind, ffn_kind = spec
-    p = dequant_block_params(p)
+    p = unshard_batch_axes(dequant_block_params(p))
+    x = constrain(x, ("batch", "act_seq", "embed_act"))
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if mixer_kind == "gqa":
         mx, cache = attention.gqa_prefill(p["mixer"], h, positions, cfg,
@@ -167,7 +175,7 @@ def _ssm_prefill_cache(pm, h, state, cfg: ModelConfig):
     xs, Bs, Cs = ssm._streams(pm, h)
 
     def tail(t):
-        return torch.nn.functional.pad(t, (0, 0, W - 1, 0))[:, -(W - 1):, :]
+        return pad(t, (0, 0, W - 1, 0))[:, -(W - 1):, :]
 
     return {"conv_x": tail(xs), "conv_B": tail(Bs), "conv_C": tail(Cs),
             "state": state}
@@ -176,7 +184,8 @@ def _ssm_prefill_cache(pm, h, state, cfg: ModelConfig):
 def block_decode(p, x, pos, cache, cfg: ModelConfig, spec):
     """One token through the block; ``cache`` is updated in place."""
     mixer_kind, ffn_kind = spec
-    p = dequant_block_params(p)
+    p = unshard_batch_axes(dequant_block_params(p))
+    x = constrain(x, ("batch", "act_seq", "embed_act"))
     h = layers.apply_norm(p["norm1"], x, cfg.norm_kind, cfg.norm_eps)
     if mixer_kind == "gqa":
         mx, cache = attention.gqa_decode(p["mixer"], h, pos, cache, cfg)

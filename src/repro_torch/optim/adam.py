@@ -198,6 +198,9 @@ def update_into(opt: Optimizer, grads: List[Optional[torch.Tensor]],
     walk order; the list is consumed (each entry dropped once used), so a
     step holds one leaf's temporaries at a time.  ``out=None`` computes
     every leaf and drops it (a warm-up that changes no buffer)."""
+    # imported here: the distributed package imports this module
+    from repro_torch.distributed import partitioning
+
     lw = opt.leafwise
     ctx = lw.begin(grads, state)
     slots = [tree_leaves(t) for t in lw.slot_trees(state)]
@@ -206,13 +209,21 @@ def update_into(opt: Optimizer, grads: List[Optional[torch.Tensor]],
         out_slots = [tree_leaves(t) for t in lw.slot_trees(out[1])]
     for i, p in enumerate(tree_leaves(params)):
         g, grads[i] = grads[i], None
-        u, ns = lw.leaf(ctx, g, p, tuple(s[i] for s in slots))
-        new_p = p + u.to(p.dtype)
-        if out is not None:
-            out_ps[i].copy_(new_p)
-            for bufs, n in zip(out_slots, ns):
-                bufs[i].copy_(n)
-        del g, u, ns, new_p
+        leaf = (ctx, g, p, tuple(s[i] for s in slots),
+                None if out is None else
+                (out_ps[i], tuple(bufs[i] for bufs in out_slots)))
+        if partitioning.is_dtensor(p):
+            # the update is elementwise: each device updates its own block
+            leaf = partitioning.local_leaves(
+                (ctx, partitioning.constrain_like(g, p), *leaf[2:]))
+        c, g, p_, s_, bufs = leaf
+        u, ns = lw.leaf(c, g, p_, s_)
+        new_p = p_ + u.to(p_.dtype)
+        if bufs is not None:
+            bufs[0].copy_(new_p)
+            for buf, n in zip(bufs[1], ns):
+                buf.copy_(n)
+        del g, u, ns, new_p, leaf, c, p_, s_, bufs
     if out is not None:
         new_state = lw.end(ctx, state, lw.slot_trees(out[1]))
         for buf, x in zip(tree_leaves(out[1]), tree_leaves(new_state)):

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.analysis import contracts
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed import partitioning
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.timeseries import TimeSeriesSampler
 from repro_torch.obs.trace import TraceRecorder
@@ -90,7 +91,8 @@ def _step_fns(model, accum_steps: int) -> Tuple[Callable, Callable]:
         with torch.enable_grad():
             loss, metrics = model.loss(tree_unflatten(params, live), batch)
             grads = torch.autograd.grad(loss, live)
-        return loss.detach(), metrics, list(grads)
+        return loss.detach(), metrics, [partitioning.constrain_like(g, p)
+                                        for g, p in zip(grads, live)]
 
     def grads(params, batch):
         if accum_steps == 1:

@@ -150,21 +150,32 @@ def test_dense_train_cell_counts_flops_between_one_and_two_model_flops():
     counted = rec["cost"]["flops_global"]
     assert mf <= counted <= 2 * mf  # remat's recompute plus attention
     assert rec["cost"]["flops_per_device"] == counted / 2
-    assert rec["cost"]["how"]["flops_per_device"] == "even_split"
+    assert rec["cost"]["how"]["flops_per_device"] == "counted_partitioned"
     assert rec["memory"]["how"]["resident_per_device"] == "exact"
     mem = rec["memory"]
     assert mem["step"]["batch_per_device"] == 1
-    # params and Adam's mu and nu in float32, the step count, the batch
-    n = Model(configs.get("stablelm-1.6b")).param_count()
-    assert mem["step"]["start_bytes"] == 3 * 4 * n + 4 + 2 * 512 * 4
+    # the partitioned step starts from its local shards: what is resident
+    assert mem["step"]["start_bytes"] == mem["resident_per_device"]["total"]
     # written into its own buffers, the step leaves only its 0-dim metrics
     assert 0 < mem["step"]["end_bytes"] - mem["step"]["start_bytes"] <= 64
     assert mem["peak_live_bytes"] == (mem["resident_per_device"]["total"]
                                       + mem["step"]["transient_peak_bytes"])
-    assert rec["collectives"] is None and rec["roofline"]["collective_s"] is None
-    assert rec["roofline"]["dominant"] in ("compute_s", "memory_s")
+    # two data-parallel devices: the gradients are reduced between them
+    colls = rec["collectives"]
+    assert colls["traffic_bytes"] > 0 and set(colls["by_axis"]) == {"data"}
+    assert rec["roofline"]["collective_s"] == colls["traffic_bytes"] / 450e9
+    assert rec["roofline"]["dominant"] in ("compute_s", "memory_s",
+                                           "collective_s")
     assert rec["roofline"]["peak_flops"] == 989e12
     json.dumps(rec)
+    # per device: half of every float32 param the embed rule splits over
+    # data (small vectors stay whole), Adam's mu and nu like them and its
+    # count, the per-device batch's tokens and targets
+    res = mem["resident_per_device"]
+    n = Model(configs.get("stablelm-1.6b")).param_count()
+    assert 4 * n / 2 <= res["params"] < 4 * n / 2 * 1.001
+    assert res["opt_state"] == 2 * res["params"] + 4
+    assert res["inputs"] == 2 * 512 * 4
 
 
 def test_prefill_cell_counts_its_cache_once():
