@@ -1,0 +1,8 @@
+"""Share of the traced serving window in which no operation ran on the
+card (%)."""
+
+from portbench import harness
+
+
+def read(ctx):
+    return harness.idle_pct(ctx.get("trace"))
