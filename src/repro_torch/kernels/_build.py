@@ -41,6 +41,7 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "lif_fused": ("lif_fused_launch", [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
+    "phase_marker": ("phase_marker_launch", [_I, _P]),
     "q115_matmul": ("q115_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "snn_chunk": (
         "snn_chunk_launch",

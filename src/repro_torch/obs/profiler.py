@@ -7,7 +7,9 @@ Two instruments for the question *where does a tick's time go?*
   tick's kernel build and graph capture never pollute the capture) and
   writes a Chrome trace (``trace.json``) into ``logdir``, loadable in
   Perfetto.  On the card it records device kernels beside the host tick
-  loop.
+  loop; the engine's own spans of those ticks are added to the file on
+  the profiler's clock (``obs.trace.profiler_ns``), so they share the
+  kernels' timeline.
 - ``dispatch_attribution(fn, *args)`` is a blocking probe: it times the
   call *returning* (host enqueue: Python, launches or a graph replay)
   apart from the wait for the device to finish, splitting the engine's
@@ -18,7 +20,7 @@ Two instruments for the question *where does a tick's time go?*
 
 ``tick_instrumentation_cost_us(...)`` microbenches the exact
 metrics/trace operations one engine tick performs, including the
-per-tick time-series sample, against *scratch* instruments, so the cost
+per-poll time-series sample, against *scratch* instruments, so the cost
 of the observability layer can be set against a measured tick without
 perturbing a live registry.  A port of the reference's
 ``repro.obs.profiler``.
@@ -26,20 +28,26 @@ perturbing a live registry.  A port of the reference's
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import TraceRecorder
+from repro_torch.obs.trace import TraceRecorder, chrome_events, profiler_ns
 
 __all__ = [
     "profile_ticks",
     "dispatch_attribution",
     "tick_instrumentation_cost_us",
 ]
+
+# the process id of the engine's spans in a profiled trace: apart from
+# the profiler's own (the host process's id, the devices' indices)
+SPANS_PID = 1 << 30
 
 
 class _TickProfileHandle:
@@ -58,6 +66,7 @@ class _TickProfileHandle:
         self.stopped = False
         self.error: Optional[str] = None
         self.trace_path: Optional[str] = None
+        self._t_start: Optional[float] = None
         self._orig_poll = engine.poll
         self._shadowed = "poll" in vars(engine)
         engine.poll = self._wrapped_poll  # instance attr shadows method
@@ -76,6 +85,7 @@ class _TickProfileHandle:
             prof = torch.profiler.profile(activities=acts)
             prof.__enter__()
             self._prof = prof
+            self._t_start = time.perf_counter()
         except Exception as e:  # profiler backend unavailable
             self.error = f"torch.profiler start failed: {e}"
             self.stopped = True
@@ -104,6 +114,7 @@ class _TickProfileHandle:
         if self._engine.device.type == "cuda":
             # the capture includes the in-flight chunk's device time
             torch.cuda.synchronize(self._engine.device)
+        t_stop = time.perf_counter()
         try:
             self._prof.__exit__(None, None, None)
             os.makedirs(self.logdir, exist_ok=True)
@@ -111,6 +122,28 @@ class _TickProfileHandle:
             self._prof.export_chrome_trace(self.trace_path)
         except Exception as e:
             self.error = f"torch.profiler stop/export failed: {e}"
+            return
+        try:
+            self._add_engine_spans(t_stop)
+        except Exception as e:  # the profiler's own trace stays as written
+            self.error = f"adding the engine's spans to the trace failed: {e}"
+
+    def _add_engine_spans(self, t_stop: float) -> None:
+        """Append the engine's spans that started inside the capture to the
+        trace file, on the profiler's clock, as a process of their own."""
+        spans = [s for s in self._engine.trace.spans()
+                 if self._t_start <= s.t0 <= t_stop]
+        with open(self.trace_path) as f:
+            doc = json.load(f)
+        # the file's times are microseconds from its base, where it has one
+        base_ns = int(doc.get("baseTimeNanoseconds", 0))
+        added = chrome_events(
+            spans, lambda t: (profiler_ns(t) - base_ns) / 1e3, SPANS_PID)
+        doc.setdefault("traceEvents", []).extend(added["traceEvents"])
+        tmp = self.trace_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, self.trace_path)
 
 
 def profile_ticks(
@@ -203,10 +236,11 @@ def tick_instrumentation_cost_us(
 ) -> float:
     """Measured cost (µs) of the metrics/trace work one engine tick
     performs, against scratch instruments: 3 tick-phase histogram
-    records + 3 tick-phase spans, one chunk span per slot, the
+    records + 3 tick-phase spans (the dispatch span carrying the
+    request ids of the ``num_slots`` dispatched slots), the
     counter/gauge updates ``_tick``/``_retire`` make, and one
     time-series sample (with latency-bucket tracking) as taken each
-    ``poll()``."""
+    ``poll()``.  ``submit`` takes no sample of its own."""
     from repro_torch.obs.timeseries import TimeSeriesSampler
 
     reg = MetricsRegistry()
@@ -224,19 +258,20 @@ def tick_instrumentation_cost_us(
     sampler = TimeSeriesSampler(
         reg, capacity=4096, track_buckets=("probe.request.latency_s",)
     )
+    slot_req = list(range(num_slots))
+    take = np.full(num_slots, 5, np.int32)
     t_start = time.perf_counter()
     for i in range(reps):
         t0 = time.perf_counter()
         for h in hs:
             h.record(1.1e-3)
         rec.span("host_prep", t0, t0 + 1e-5, track="tick")
-        rec.span("dispatch", t0, t0 + 1e-3, track="tick")
+        rec.span(
+            "dispatch", t0, t0 + 1e-3, track="tick",
+            args={"steps": int(take.sum()),
+                  "rids": [slot_req[s] for s in np.flatnonzero(take)]},
+        )
         rec.span("stats_fetch", t0, t0 + 1e-4, track="tick")
-        for s in range(num_slots):
-            rec.span(
-                "chunk", t0, t0 + 1e-3,
-                track=f"slot{s}", args={"rid": i, "steps": 5},
-            )
         ticks.inc()
         events.inc(1234.0)
         steps.inc(20.0)

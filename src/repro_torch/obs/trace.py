@@ -12,6 +12,11 @@ common zero.  ``chrome_trace()`` emits Chrome trace-event JSON (the
 ``chrome://tracing``: each distinct track becomes a named thread of one
 ``engine`` process, spans are ``ph: "X"`` complete events, instants are
 ``ph: "i"`` with thread scope.
+
+``profiler_ns(t)`` puts a span's time on the clock of ``torch.profiler``'s
+events (nanoseconds since the Unix epoch), so host spans and the device's
+kernels can be read on one timeline: the hot path keeps ``perf_counter``,
+and the offset between the two clocks is read when a time is converted.
 """
 
 from __future__ import annotations
@@ -20,9 +25,19 @@ import collections
 import dataclasses
 import json
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
-__all__ = ["Span", "TraceRecorder"]
+__all__ = ["Span", "TraceRecorder", "chrome_events", "profiler_ns"]
+
+
+def profiler_ns(t: float) -> int:
+    """The ``perf_counter`` time ``t`` (seconds, as spans hold it) on
+    ``torch.profiler``'s clock: nanoseconds since the Unix epoch, as its
+    events' ``start_ns()`` read.  The offset between the two clocks is
+    read at each call, since a wall clock being slewed drifts from
+    ``perf_counter`` (by up to 5 ms a second on a machine correcting its
+    time): convert spans soon after they are recorded."""
+    return round(t * 1e9) + time.time_ns() - time.perf_counter_ns()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,46 +122,54 @@ class TraceRecorder:
         recorded span."""
         spans = self.spans()
         base = min((s.t0 for s in spans), default=0.0)
-        tids: Dict[str, int] = {}
-        events: List[Dict] = []
-        for s in spans:
-            tid = tids.setdefault(s.track, len(tids) + 1)
-            ev = {
-                "name": s.name,
-                "cat": s.cat,
-                "pid": 1,
-                "tid": tid,
-                "ts": (s.t0 - base) * 1e6,
-            }
-            if s.args:
-                ev["args"] = dict(s.args)
-            if s.t1 is None:
-                ev["ph"] = "i"
-                ev["s"] = "t"  # thread-scoped instant
-            else:
-                ev["ph"] = "X"
-                ev["dur"] = (s.t1 - s.t0) * 1e6
-            events.append(ev)
-        meta = [
-            {
-                "name": "process_name",
-                "ph": "M",
-                "pid": 1,
-                "args": {"name": "snn_stream_engine"},
-            }
-        ] + [
-            {
-                "name": "thread_name",
-                "ph": "M",
-                "pid": 1,
-                "tid": tid,
-                "args": {"name": track},
-            }
-            for track, tid in tids.items()
-        ]
-        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+        return chrome_events(spans, lambda t: (t - base) * 1e6)
 
     def write(self, path) -> None:
         with open(path, "w") as f:
             json.dump(self.chrome_trace(), f, indent=1)
             f.write("\n")
+
+
+def chrome_events(spans: List[Span], ts_us: Callable[[float], float],
+                  pid: int = 1) -> Dict:
+    """``spans`` as Chrome trace events of process ``pid`` (named
+    ``snn_stream_engine``), each track a thread in first-seen order;
+    ``ts_us`` maps a span time to the trace's microseconds."""
+    tids: Dict[str, int] = {}
+    events: List[Dict] = []
+    for s in spans:
+        tid = tids.setdefault(s.track, len(tids) + 1)
+        ev = {
+            "name": s.name,
+            "cat": s.cat,
+            "pid": pid,
+            "tid": tid,
+            "ts": ts_us(s.t0),
+        }
+        if s.args:
+            ev["args"] = dict(s.args)
+        if s.t1 is None:
+            ev["ph"] = "i"
+            ev["s"] = "t"  # thread-scoped instant
+        else:
+            ev["ph"] = "X"
+            ev["dur"] = (s.t1 - s.t0) * 1e6
+        events.append(ev)
+    meta = [
+        {
+            "name": "process_name",
+            "ph": "M",
+            "pid": pid,
+            "args": {"name": "snn_stream_engine"},
+        }
+    ] + [
+        {
+            "name": "thread_name",
+            "ph": "M",
+            "pid": pid,
+            "tid": tid,
+            "args": {"name": track},
+        }
+        for track, tid in tids.items()
+    ]
+    return {"traceEvents": meta + events, "displayTimeUnit": "ms"}

@@ -36,6 +36,11 @@ there the same bodies run uncaptured over the same static buffers.
 ``cuda_graph=False`` runs prefill and decode eagerly, a fresh cache a
 batch.
 
+Each prefill and each decode step is bracketed on the card by phase
+markers (``kernels.markers``: ``prefill_begin``/``prefill_end``,
+``decode_begin``/``decode_end``), recorded into the graphs with the rest
+of the body, so the profiler's trace splits the two phases' device time.
+
 The reference's right-padding simplification is kept on purpose: a row
 shorter than the batch's longest prompt takes its first token from the
 logits at position ``Lmax - 1``, which follow its padding (token 0), not
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis import contracts
+from repro_torch.kernels import markers
 from repro_torch.models.model import Model
 from repro_torch.tree import tree_flatten_with_names, tree_leaves
 
@@ -160,18 +166,22 @@ class ServeEngine:
         """``model.prefill``, its cache copied into the static ``cache``
         leaf by leaf (checked against it first with ``check``); returns the
         logits."""
+        markers.mark("prefill_begin", self.device)
         logits, new = self.model.prefill(self.params, batch, self.cache_len)
         if check:
             _check_like(cache, new, f"{self.model.cfg.name} prefill cache")
         for dst, src in zip(tree_leaves(cache), tree_leaves(new)):
             dst.copy_(src)
+        markers.mark("prefill_end", self.device)
         return logits
 
     def _decode_body(self, token: torch.Tensor, pos: torch.Tensor,
                      cache: Tree) -> torch.Tensor:
         """``model.decode_step``, writing the static ``cache`` in place;
         returns the logits."""
+        markers.mark("decode_begin", self.device)
         logits, _ = self.model.decode_step(self.params, token, pos, cache)
+        markers.mark("decode_end", self.device)
         return logits
 
     def _graph_pool(self):
@@ -296,15 +306,19 @@ class ServeEngine:
             logits = self._prefill(batch)
             decode = self._decode
         else:
+            markers.mark("prefill_begin", self.device)
             logits, cache = self.model.prefill(self.params, batch,
                                                self.cache_len)
+            markers.mark("prefill_end", self.device)
             pos = torch.full((len(reqs),), Lmax + cfg.num_image_tokens,
                              dtype=torch.long, device=self.device)
 
             def decode(tok):
                 nonlocal cache, pos
+                markers.mark("decode_begin", self.device)
                 logits, cache = self.model.decode_step(
                     self.params, tok[:, None], pos, cache)
+                markers.mark("decode_end", self.device)
                 pos = pos + 1
                 return logits
 

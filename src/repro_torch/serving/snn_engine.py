@@ -62,10 +62,13 @@ The core of ``repro.serving.snn_engine.SNNStreamEngine``:
   counters, request histograms, tick-phase histograms
   (``engine.tick.host_prep_s`` / ``dispatch_s`` / ``stats_fetch_s``) and
   the fault, shedding, preemption and snapshot instruments.
-  ``engine.trace`` records a span per request lifecycle stage and per
-  tick phase; ``engine.timeseries`` samples the registry per tick and per
-  submit; ``health()`` judges the SLOs over it and its ``diagnosis``
-  tells "overloaded and shedding" from "faulty".
+  ``engine.trace`` records a span per request lifecycle stage (``submit``
+  from entry to return) and per tick phase, at most three a tick: the
+  ``dispatch`` span lists the request ids the chunk advanced;
+  ``engine.timeseries`` samples the registry once a poll and once as an
+  episode opens (a submit's counts land in the next poll's sample);
+  ``health()`` judges the SLOs over it and its ``diagnosis`` tells
+  "overloaded and shedding" from "faulty".
 - **Admission plane** (``admission=`` an ``faults.AdmissionPolicy``).  A
   bounded queue sheds at ``submit()`` once full (``priority > 0`` parks
   instead, served best-effort when the heap empties), and an EDF
@@ -518,8 +521,8 @@ class SNNStreamEngine:
         when an episode opens (first submit on an idle engine); request
         and tick-phase histograms are engine-lifetime (``reset_tick_stats``
         zeroes the latter).  The sampler captures a registry delta on
-        every tick and every admission, the signal ``health()`` evaluates
-        the SLOs against.
+        every poll and as an episode opens, the signal ``health()``
+        evaluates the SLOs against.
         """
         self.metrics = MetricsRegistry()
         self.trace = TraceRecorder(capacity=trace_capacity)
@@ -788,7 +791,10 @@ class SNNStreamEngine:
     def _begin_episode(self, now: float) -> None:
         # throughput and deadline counters are per episode: an episode
         # opens at the first submit on an idle engine and closes when the
-        # last queued request drains
+        # last queued request drains.  One time-series sample opens it, so
+        # the episode's first poll sample carries its submits' counts (a
+        # series' first sample has no interval and counts in no window)
+        self.timeseries.sample(now)
         self.metrics.reset(prefix="engine.episode.")
         self._episode_t0 = now
         self._episode_open = True
@@ -873,7 +879,9 @@ class SNNStreamEngine:
 
     def submit(self, req: StreamRequest) -> int:
         """Enqueue one request; returns its request id.  Admission happens
-        at the next ``poll()``."""
+        at the next ``poll()``.  Records a ``submit`` span, entry to
+        return."""
+        t_in = time.perf_counter()
         T = self._resolve_steps(req)
         K = self.cfg.layer_sizes[0]
         if req.spikes is not None:
@@ -919,12 +927,10 @@ class SNNStreamEngine:
             )
             if verdict == shed_mod.SHED:
                 self._shed(rid, req, now, dl, reason)
-                self.timeseries.sample()
-                return rid
+                return self._submitted(rid, req, t_in)
             if verdict == shed_mod.PARK:
                 self._park(rid, req, now, dl, reason)
-                self.timeseries.sample()
-                return rid
+                return self._submitted(rid, req, t_in)
         key = (
             -int(req.priority),
             0 if dl is not None else 1,  # deadline-less requests last
@@ -934,11 +940,13 @@ class SNNStreamEngine:
         self._seq += 1
         heapq.heappush(self._queue, (key, rid, req, now, dl))
         self._m_qdepth.set(len(self._queue))
-        self.trace.instant(
-            "submit", now, track="queue",
+        return self._submitted(rid, req, t_in)
+
+    def _submitted(self, rid: int, req: StreamRequest, t_in: float) -> int:
+        self.trace.span(
+            "submit", t_in, time.perf_counter(), track="queue",
             args={"rid": rid, "priority": req.priority},
         )
-        self.timeseries.sample()
         return rid
 
     def _upload(
@@ -1501,16 +1509,13 @@ class SNNStreamEngine:
         self._m_active.set(sum(r is not None for r in self._slot_req))
         self.trace.span("host_prep", t0, t1, track="tick")
         if dispatched:
+            # one span a tick, whatever the slots: it names the requests
+            # the chunk advanced
+            rids = [self._slot_req[s] for s in np.flatnonzero(take)]
             self.trace.span(
                 "dispatch", t1, t2, track="tick",
-                args={"steps": int(take.sum())},
+                args={"steps": int(take.sum()), "rids": rids},
             )
-            for s in range(S):
-                if take[s] > 0:
-                    self.trace.span(
-                        "chunk", t1, t2, track=f"slot{s}",
-                        args={"rid": self._slot_req[s], "steps": int(take[s])},
-                    )
         self.trace.span("stats_fetch", t2, t3, track="tick")
         return finished
 

@@ -21,7 +21,12 @@ full-width LM's step fits beside its params and Adam state.
 ``StaticStep``: over static state and batch buffers, captured once per
 batch signature into a ``torch.cuda.CUDAGraph`` on the card and replayed
 every step (uncaptured on the CPU, which has no graphs), the state
-updated in place.  ``jit=False`` is the eager step.
+updated in place.  ``jit=False`` is the eager step.  On the card the
+static step's update phase (the norms, the clip and the leaf-by-leaf
+optimizer and apply) is bracketed by phase markers (``kernels.markers``:
+``update_begin`` once the gradients are computed, ``update_end`` after
+the last leaf), which the graph records, so the profiler's trace shows
+the optimizer's share of a replay.
 
 Every ``Trainer`` carries a ``MetricsRegistry`` (``trainer.metrics``:
 step-time / loss / grad-norm histograms, step counters, latest-metrics
@@ -44,6 +49,7 @@ import torch
 from repro_torch.analysis import contracts
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.distributed import partitioning
+from repro_torch.kernels import markers
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.timeseries import TimeSeriesSampler
 from repro_torch.obs.trace import TraceRecorder
@@ -117,14 +123,18 @@ def make_step_parts(
     it: autograd over the loss, then the optimizer's step written leaf by
     leaf into ``out``, a ``(params, opt_state)`` pair of buffers that may
     be the state's own (``optim.adam.update_into``); ``out=None`` computes
-    it and changes nothing (a warm-up)."""
+    it and changes nothing (a warm-up).  The update phase lies between the
+    ``update_begin`` and ``update_end`` markers."""
     host, grads_fn = _step_fns(model, accum_steps)
 
     def device(state: TrainState, batch: Dict[str, torch.Tensor], out):
         metrics, grads = grads_fn(state.params, batch)
+        where = grads[0].device
+        markers.mark("update_begin", where)
         with torch.no_grad():
             metrics["grad_norm"] = global_norm(grads)
             update_into(optimizer, grads, state.opt_state, state.params, out)
+        markers.mark("update_end", where)
         return metrics
 
     return host, device

@@ -219,31 +219,84 @@ def test_report_keys_match_the_reference(engine_pair):
 
 def test_engine_span_lifecycle_invariants():
     """Port of ``tests/test_obs.py::test_engine_span_lifecycle_invariants``:
-    every completed request leaves queue -> stage -> >=1 chunk ->
-    complete, with monotonic timestamps ordered within the request."""
+    every completed request leaves submit -> queue -> stage -> >=1 chunk
+    -> complete, with monotonic timestamps ordered within the request.
+    The port records no span per slot: a request's chunks are the tick
+    ``dispatch`` spans that list its rid."""
     eng = _engine(num_slots=2, chunk_steps=6)
     rids = [eng.submit(engine.StreamRequest(spikes=x))
             for x in _trains(steps=[20] * 5)]
     eng.drain()
     spans = eng.trace.spans()
     assert all(s.t1 is None or s.t1 >= s.t0 for s in spans)
+    dispatches = [s for s in spans if s.name == "dispatch"]
     for rid in rids:
         mine = [s for s in spans if s.args and s.args.get("rid") == rid]
         kinds = [s.name for s in mine]
         for k in ("submit", "queue", "stage", "complete"):
             assert k in kinds
-        assert kinds.count("chunk") >= 1
+        chunks = [s for s in dispatches if rid in s.args["rids"]]
+        assert len(chunks) >= 1
         by = {s.name: s for s in mine}
-        queue, stage, complete = by["queue"], by["stage"], by["complete"]
+        submit, queue = by["submit"], by["queue"]
+        stage, complete = by["stage"], by["complete"]
+        assert submit.t0 <= queue.t0 <= submit.t1  # submit spans entry to return
         assert queue.t0 <= queue.t1 <= stage.t0 <= stage.t1
-        for c in (s for s in mine if s.name == "chunk"):
+        for c in chunks:
             assert stage.t1 <= c.t1 <= complete.t0
-        assert queue.t0 == by["submit"].t0
         assert complete.args["latency_ms"] > 0
         assert complete.args["energy_pj"] > 0
     assert any(s.track == "tick" and s.name == "dispatch" for s in spans)
     assert any(s.track == "tick" and s.name == "host_prep" for s in spans)
     assert any(s.track == "tick" and s.name == "stats_fetch" for s in spans)
+
+
+def test_a_tick_records_at_most_three_spans_at_128_slots():
+    """Whatever the slots, a tick records its three phase spans and no
+    span per slot: the dispatch span lists every request it advanced."""
+    eng = _engine(num_slots=128, chunk_steps=5)
+    rids = [eng.submit(engine.StreamRequest(spikes=x))
+            for x in _trains(steps=[20] * 128)]
+    eng.poll()  # admits all 128 and runs the first tick
+    for _ in range(2):
+        before = len(eng.trace)
+        eng._tick()
+        added = eng.trace.spans()[before:]
+        assert len(added) <= 3
+        assert {s.name for s in added} == {"host_prep", "dispatch",
+                                           "stats_fetch"}
+    dispatch = [s for s in eng.trace.spans() if s.name == "dispatch"][-1]
+    assert dispatch.args["rids"] == rids
+    assert dispatch.args["steps"] == 128 * 5
+
+
+def test_submit_is_one_span_without_a_sample():
+    """Every submit, queued, shed or parked, records one ``submit`` span
+    (entry to return) and no instrument of its own; inside an open
+    episode it takes no time-series sample: the next poll's sample
+    carries its counts."""
+    from repro_torch import faults
+
+    eng = _engine(num_slots=1, admission=faults.AdmissionPolicy(
+        max_queue_depth=1))
+    trains = _trains(steps=[20] * 5)
+    eng.submit(engine.StreamRequest(spikes=trains[0]))  # opens the episode
+    samples = len(eng.timeseries)
+    eng.submit(engine.StreamRequest(spikes=trains[1]))  # shed: queue full
+    eng.submit(engine.StreamRequest(spikes=trains[2], priority=1))  # parked
+    assert len(eng.timeseries) == samples
+    spans = [s for s in eng.trace.spans() if s.name == "submit"]
+    assert [s.args["rid"] for s in spans] == [0, 1, 2]
+    assert all(s.track == "queue" and s.t1 > s.t0 for s in spans)
+    snap = eng.metrics_snapshot()
+    assert snap["engine.requests.submitted"]["value"] == len(spans)
+    assert not any(k.startswith("engine.submit") for k in snap)
+    shed = snap["engine.requests.shed"]["value"]
+    assert shed == 1
+    eng.poll()
+    assert len(eng.timeseries) == samples + 1
+    assert eng.timeseries.window_sum("engine.requests.shed") == shed
+    assert eng.timeseries.window_sum("engine.requests.submitted") == 3
 
 
 def test_engine_metrics_snapshot_consistency():

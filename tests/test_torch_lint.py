@@ -503,6 +503,8 @@ def test_ptxas_reports_fill_registers_and_judge_spills(tmp_path):
         "spike_matmul": entry("spike_matmul_kernel", 124, 0),
         "q115_matmul": entry("q115_matmul_kernel", 110, 0) + entry(
             "q115_rate_kernel", 72, 0),
+        # the phase markers' source: empty kernels, no budget of their own
+        "phase_marker": entry("phase_marker_update_end", 4, 0),
     }
     _reports(tmp_path, clean.get)
     plans, findings = check_kernel_budgets(build_dir=tmp_path)

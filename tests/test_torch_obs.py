@@ -173,6 +173,116 @@ def test_profile_ticks_writes_a_chrome_trace(tmp_path):
     handle.stop()  # idempotent
 
 
+def test_profiler_ns_puts_a_span_on_the_profilers_clock():
+    """A span and a ``record_function`` range around the same 2 ms sleep
+    agree within 0.2 ms at both ends once the span is mapped by
+    ``profiler_ns``: the best of five probes, since the suite's other
+    workers share the cores."""
+    import time
+
+    import torch
+
+    from repro_torch.obs.trace import profiler_ns
+
+    spans = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("warm-up"):
+            pass
+        for i in range(5):
+            with torch.profiler.record_function(f"probe{i}"):
+                t0 = time.perf_counter()
+                time.sleep(0.002)
+                t1 = time.perf_counter()
+            spans.append((t0, t1))
+    ranges = {ev.name(): (ev.start_ns(), ev.start_ns() + ev.duration_ns())
+              for ev in prof.profiler.kineto_results.events()
+              if ev.name().startswith("probe")}
+    worst = [max(abs(profiler_ns(t0) - ranges[f"probe{i}"][0]),
+                 abs(profiler_ns(t1) - ranges[f"probe{i}"][1]))
+             for i, (t0, t1) in enumerate(spans)]
+    assert min(worst) < 200_000, worst
+
+
+def test_profile_ticks_adds_the_engines_spans_on_the_profilers_clock(
+        tmp_path):
+    """The profiled ticks' engine spans join the profiler's trace file as
+    a process of their own, each tick's ``dispatch`` span inside the
+    profiler's range of the ``poll`` that ran it, to the 0.2 ms the two
+    clocks agree to."""
+    import numpy as np
+    import torch
+
+    from _torch_parity import params_pair, port_cfg, spikes
+    from repro.core import snn as ref_snn
+    from repro_torch.obs.profiler import SPANS_PID
+    from repro_torch.serving import snn_engine
+
+    cfg = ref_snn.SNNConfig(layer_sizes=(64, 24, 2), num_steps=20)
+    eng = snn_engine.SNNStreamEngine(
+        params_pair(cfg, seed=0)[1], port_cfg(cfg), num_slots=2,
+        chunk_steps=5, device="cpu",
+    )
+    real_poll = eng.poll
+
+    def poll():  # a profiler range around each poll, as a caller's
+        with torch.profiler.record_function("caller.poll"):
+            return real_poll()
+
+    eng.poll = poll
+    handle = profile_ticks(eng, tmp_path / "prof", num_ticks=3, skip=1)
+    rng = np.random.default_rng(0)
+    eng.run([snn_engine.StreamRequest(spikes=spikes(rng, (20, 64), 0.3))
+             for _ in range(3)])
+    handle.stop()
+    assert handle.error is None
+    with open(handle.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    mine = [e for e in events if e.get("pid") == SPANS_PID]
+    names = {e["name"] for e in mine}
+    assert {"process_name", "thread_name", "dispatch", "host_prep"} <= names
+    polls = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == "caller.poll" and e.get("ph") == "X"]
+    ticks = [e for e in mine if e["name"] == "dispatch"]
+    assert polls and len(ticks) == 3
+    for e in ticks:
+        assert any(a - 200 <= e["ts"] and e["ts"] + e["dur"] <= b + 200
+                   for a, b in polls)
+
+
+def test_a_failed_span_merge_sets_the_error_and_serving_goes_on(
+        tmp_path, monkeypatch):
+    """Adding the engine's spans to the trace file fails like the export:
+    into ``handle.error``, never out of the wrapped ``poll``; the
+    profiler's own file stays as it wrote it."""
+    import numpy as np
+
+    from _torch_parity import params_pair, port_cfg, spikes
+    from repro.core import snn as ref_snn
+    from repro_torch.obs import profiler
+    from repro_torch.serving import snn_engine
+
+    def corrupt(*args, **kwargs):
+        raise json.JSONDecodeError("truncated", "", 0)
+
+    monkeypatch.setattr(profiler.json, "load", corrupt)
+    cfg = ref_snn.SNNConfig(layer_sizes=(64, 24, 2), num_steps=20)
+    eng = snn_engine.SNNStreamEngine(
+        params_pair(cfg, seed=0)[1], port_cfg(cfg), num_slots=2,
+        chunk_steps=5, device="cpu",
+    )
+    handle = profile_ticks(eng, tmp_path / "prof", num_ticks=2, skip=1)
+    rng = np.random.default_rng(0)
+    res = eng.run([snn_engine.StreamRequest(spikes=spikes(rng, (20, 64), 0.3))
+                   for _ in range(3)])
+    assert len(res) == 3
+    assert handle.stopped and "engine's spans" in handle.error
+    assert "poll" not in vars(eng)
+    text = (tmp_path / "prof" / "trace.json").read_text()
+    monkeypatch.undo()
+    assert json.loads(text)["traceEvents"]
+
+
 def test_serve_cli_writes_metrics_trace_and_timeseries(tmp_path, capsys):
     m, t, s = (tmp_path / n for n in ("m.json", "t.json", "s.jsonl"))
     serve.main(["--snn", "--requests", "3", "--batch", "2", "--image-hw",
@@ -187,9 +297,12 @@ def test_serve_cli_writes_metrics_trace_and_timeseries(tmp_path, capsys):
     assert snap["engine.requests.completed"]["value"] == 3
     assert snap["engine.tick.dispatch_s"]["count"] > 0
     spans = json.loads(t.read_text())["traceEvents"]
-    assert {"submit", "queue", "stage", "chunk", "complete", "dispatch"} <= {
+    assert {"submit", "queue", "stage", "complete", "dispatch"} <= {
         e.get("name") for e in spans
     }
+    # a request's chunks are the dispatch spans that list its rid
+    assert {r for e in spans if e.get("name") == "dispatch"
+            for r in e["args"]["rids"]} == {0, 1, 2}
     lines = [json.loads(x) for x in s.read_text().splitlines()]
     assert len(lines) >= 3 and "engine.requests.completed" in lines[-1][
         "values"]
