@@ -136,7 +136,14 @@ Phases, in order; any failure exits non-zero:
    measured DVS events against the BCNN baselines (a 45 nm model).
 11. The LM zoo's serving path (``ServeEngine`` on ``repro_torch.models``;
    none of the six kernels runs on it, and their launch counts must stay
-   0): ``stablelm-1.6b`` at full width (24 layers, d_model 2048, vocab
+   0; its one kernel is ``decode_attention``, the decode step's attention
+   over a full bfloat16 cache).  First that kernel alone at the LM serving
+   cell's shape (B 32, a cache of 1,280 rows, 32 kv heads of 64, 1,152
+   valid rows): its device time a launch beside its bytes bound (the
+   valid K and V rows once), ``attend_full`` (the plain version) and
+   ``F.scaled_dot_product_attention`` (the library yardstick, timed only;
+   the port never calls it), held to 99 % of outputs within one bfloat16
+   ulp of ``attend_full``.  Then ``stablelm-1.6b`` at full width (24 layers, d_model 2048, vocab
    100,352; 1,644,515,328 float32 params drawn on the card from a seed),
    bfloat16 compute, ``ServeEngine(batch_size=4, cache_len=128)`` on 8
    requests of 4-23 tokens x 16 new tokens, greedy: first the eager
@@ -150,7 +157,10 @@ Phases, in order; any failure exits non-zero:
    (CUDA events: median and spread), device operations and device ms a
    step and the busy share over two traced steps (``torch.profiler``), a
    greedy step under ``set_sync_debug_mode("error")``, peak allocated and
-   reserved memory; the ms of each capture.  The gate: the same params
+   reserved memory; the ms of each capture; ``decode_attention``'s
+   counters over the bfloat16 serves (held: each decode capture records
+   one launch a layer, and no decode call falls back to ``attend_full``).
+   The gate: the same params
    and requests served in float32 compute with TF32 off (graphed, and
    equal to eager), and the teacher-forced forward over each batch's
    right-padded prompts and generated tokens; its argmax at every
@@ -2678,6 +2688,8 @@ def lm_full_width(torch, dev, card):
     counted = lm_kernels()
     for fn in counted:
         fn.launches = 0
+    from repro_torch.kernels.decode_attention import decode_attention as da
+    da.launches = da.captured = da.fallbacks = 0
 
     # the eager engine (cuda_graph=False): the baseline
     torch.cuda.reset_peak_memory_stats()
@@ -2724,6 +2736,15 @@ def lm_full_width(torch, dev, card):
     launched = {fn.__name__: fn.launches for fn in counted if fn.launches}
     if launched:
         fail(f"lm[{LM_ARCH}]: the LM path launched {launched}")
+    # decode attention: the eager engine's steps and the graphed engine's
+    # first call of its decode signature launch it, each capture records
+    # it once a layer; no decode call falls back to attend_full
+    da_counts = {"launches": da.launches, "captured": da.captured,
+                 "fallbacks": da.fallbacks}
+    if (da.captured != n_decode * cfg.num_layers or da.fallbacks
+            or not da.launches):
+        fail(f"lm[{LM_ARCH}]: decode attention counted {da_counts}, want "
+             f"{n_decode * cfg.num_layers} captured and 0 fallbacks")
 
     # the first batch's logits: each replay against the eager call
     first = batches[0]
@@ -2807,7 +2828,9 @@ def lm_full_width(torch, dev, card):
     print(f"lm[{LM_ARCH}]: peak device memory graphed {g_peak[0]:.2f} GB "
           f"allocated, {g_peak[1]:.2f} GB reserved; eager {e_peak[0]:.2f} GB "
           f"allocated, {e_peak[1]:.2f} GB reserved | the six SNN kernels "
-          f"launched 0 times | on {card}")
+          f"launched 0 times | decode_attention {da_counts} (captured = "
+          f"{n_decode} decode capture(s) x {cfg.num_layers} layers) | on "
+          f"{card}")
     del eng, eager
     torch.cuda.empty_cache()
 
@@ -2820,11 +2843,91 @@ def lm_full_width(torch, dev, card):
     lm_serve_checked(torch, dev, LM_ARCH, cfg32, params, reqs, LM_BATCH,
                      LM_CACHE, card)
     print(f"lm[{LM_ARCH}]: peak device memory (float32 gate) "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | on {card}")
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | float32 "
+          f"decode calls sent to attend_full: {da.fallbacks} | on {card}")
+    return da_counts
+
+
+# the LM serving cell's decode step (portbench lm-batch-b32-p1024-n256 on
+# stablelm-1.6b): B 32, a cache of 1,280 rows, 32 kv heads of 64, one query
+# group; 1,152 valid rows a row, the mean over a batch's 255 steps
+DA_SHAPE = dict(B=32, S=1280, Kv=32, G=1, D=64)
+DA_VALID = 1152
+
+
+def lm_decode_attention(torch, dev, card):
+    """The decode-attention kernel alone at the serving cell's shape: its
+    device time a launch (``torch.profiler``) beside its bytes bound (the
+    valid K and V rows once), the plain version (``attend_full`` as
+    ``gqa_decode`` called it) and ``F.scaled_dot_product_attention`` over
+    the same rows, the library yardstick, timed only (the port never calls
+    it).  Gated: within the card test's tolerance of ``attend_full``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.attention import attend_full
+
+    B, S, Kv, G, D = (DA_SHAPE[k] for k in ("B", "S", "Kv", "G", "D"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for shape in ((B, 1, Kv, G, D), (B, S, Kv, D), (B, S, Kv, D)))
+    pos = torch.full((B,), DA_VALID - 1, dtype=torch.long, device=dev)
+    scale = D ** -0.5
+    j = torch.arange(S, device=dev)[None, :]
+    kv_pos = torch.where(j <= pos[:, None], j, -1)
+
+    def kernel():
+        return da.decode_attention(q, k, v, pos, scale)
+
+    def plain():
+        return attend_full(q, k, v, pos[:, None], kv_pos, window=None,
+                           scale=scale)
+
+    # SDPA's (B, heads, L, D) layout: a view of the cache, no copy timed
+    qs = q.reshape(B, 1, Kv * G, D).transpose(1, 2)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    keep = (j <= pos[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=keep,
+                                              scale=scale)
+
+    got, want = kernel(), plain()
+    err = (got.float() - want.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().float().clamp_min(2.0 ** -126))) - 7)
+    within = float((err <= ulp).float().mean())
+    lib_err = float((library().transpose(1, 2).reshape(got.shape).float()
+                     - want.float()).abs().max())
+    if within < 0.99:
+        fail(f"decode_attention: {within:.4%} of outputs within 1 bf16 ulp "
+             f"of attend_full (needs 99 %)")
+    ms = device_ms(kernel, reps=50, only="decode_attention_kernel")
+    call_ms = device_ms(kernel, reps=50)
+    plain_ms = device_ms(plain, reps=10)
+    library_ms = device_ms(library, reps=50)
+    ev_ms = cuda_ms(kernel, reps=50)
+    nbytes = da.bytes_bound([DA_VALID - 1] * B, S, Kv, D)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    share = None if ms is None else bound_ms / ms
+    print(f"decode_attention: B {B}, S {S}, Kv {Kv}, G {G}, D {D}, "
+          f"{DA_VALID} valid rows a row | kernel {ms} ms device a launch "
+          f"(call {call_ms} ms; {ev_ms:.4f} ms CUDA events) | bound "
+          f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s) = "
+          f"{share if share is None else f'{share:.1%}'} of the bound | "
+          f"plain attend_full {plain_ms} ms | library SDPA {library_ms} ms "
+          f"(timed only; max |SDPA - attend_full| {lib_err:.3e}) | "
+          f"{within:.4%} of outputs within 1 bf16 ulp of attend_full, max "
+          f"|diff| {float(err.max()):.3e} | on {card}")
+    return {"ms": ms, "call_ms": call_ms, "events_ms": ev_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "plain_ms": plain_ms,
+            "library_ms": library_ms, "within_1ulp": within,
+            "max_abs_err": float(err.max())}
 
 
 def phase_lm(torch, dev, card):
-    """Phase 11: the LM zoo's serving path (``ServeEngine`` on ``Model``)."""
+    """Phase 11: the LM zoo's serving path (``ServeEngine`` on ``Model``);
+    returns the decode-attention kernel's row."""
     import dataclasses
     import io
     from contextlib import redirect_stdout
@@ -2836,8 +2939,10 @@ def phase_lm(torch, dev, card):
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
+    da_row = lm_decode_attention(torch, dev, card)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    lm_full_width(torch, dev, card)
+    da_row["launches"] = lm_full_width(torch, dev, card)
     torch.cuda.empty_cache()
 
     # the other families at full width, float32 compute, 2 requests x 4
@@ -2943,6 +3048,7 @@ def phase_lm(torch, dev, card):
     print(f"lm example (graphed): {lines[0].strip()}")
     print(f"lm: phase 11 took {time.perf_counter() - t_phase:.1f} s | on "
           f"{card}")
+    return da_row
 
 
 # --------------------------------------------------------------------------
@@ -3660,8 +3766,8 @@ def main() -> int:
     phase_faults(torch, dev, params_np, card)
     # 10. the event input path: DVS serving, capacity, AER-direct, BCNN
     events = phase_events(torch, dev, params_np, card, main_run)
-    # 11. the LM zoo's serving path (no kernel of the table on it)
-    phase_lm(torch, dev, card)
+    # 11. the LM zoo's serving path (decode attention its one kernel)
+    da_row = phase_lm(torch, dev, card)
     # 12. the LM zoo's training path (no kernel of the table on it either)
     lm_train = phase_lm_train(torch, dev, card)
     # 14. slot sharding over a mesh of the card; the GPipe pipeline
@@ -3712,7 +3818,10 @@ def main() -> int:
         "ms_layer1": aer["layer1"]["ms"],
         "cases": aer_cases,
         "launches_inference": events["aer_launches"],
-    }] + ops_rows(hw, ops_k)
+    }] + ops_rows(hw, ops_k) + [dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces=None, **da_row)]
     for row in rows:
         p = budgets[row["name"]]
         row["budget"] = {k: p[k] for k in (

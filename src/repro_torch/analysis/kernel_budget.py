@@ -317,6 +317,38 @@ def _plan_q115(name: str, M: int, K: int, N: int, saturate: bool) -> KernelPlan:
                       q115_smem(p.warps), covers, errors)
 
 
+# the LM serving cell's decode step: B 32, a cache of 1,280 rows, 32 kv
+# heads of 64 (stablelm-1.6b), one query a kv head
+_DECODE = dict(B=32, S=1280, Kv=32, G=1, D=64)
+
+
+def _plan_decode_attention() -> KernelPlan:
+    from repro_torch.kernels import decode_attention as mod
+
+    B, S, Kv, G, D = (_DECODE[k] for k in ("B", "S", "Kv", "G", "D"))
+    p = mod.plan(B, S, Kv, G, D)
+    d = cu_defines("decode_attention")
+    errors: list[str] = []
+    covers: dict = {}
+    _cover(errors, covers, "kv_heads", p.grid[0], Kv)
+    _cover(errors, covers, "rows", p.grid[1], B)
+    if d.get("DA_THREADS") != mod.THREADS:
+        errors.append(f"{mod.THREADS} threads != the source's DA_THREADS "
+                      f"{d.get('DA_THREADS')}")
+    if d.get("DA_SCORES_MAX") != mod.SCORES_MAX:
+        errors.append(f"SCORES_MAX {mod.SCORES_MAX} != the source's "
+                      f"DA_SCORES_MAX {d.get('DA_SCORES_MAX')}")
+    if p.smem > d.get("DA_SMEM_MAX", DEFAULT_SMEM_BUDGET):
+        errors.append(f"shared memory {p.smem} over DA_SMEM_MAX "
+                      f"{d.get('DA_SMEM_MAX')}")
+    # the instantiation the cell's shape launches: 8 lanes a row (D <= 64),
+    # one query group
+    return KernelPlan("decode_attention", "decode_attention",
+                      "decode_attention_kernelILi8ELi1EE", dict(_DECODE),
+                      p.grid,
+                      p.threads, 1, p.smem, covers, errors)
+
+
 K0, N0, N1 = _WIDTHS
 KERNEL_PLANNERS: dict[str, Callable[[], KernelPlan]] = {
     "snn_chunk": lambda: _plan_snn_chunk(_SLOTS, _TC),
@@ -334,6 +366,7 @@ KERNEL_PLANNERS: dict[str, Callable[[], KernelPlan]] = {
         "q115_matmul[raw]", _HW_B * _T, K0, N0, False),
     "q115_matmul[128x512x128]": lambda: _plan_q115(
         "q115_matmul[128x512x128]", 128, 512, 128, True),
+    "decode_attention": _plan_decode_attention,
 }
 
 

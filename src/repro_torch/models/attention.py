@@ -27,6 +27,7 @@ from repro_torch.distributed.partitioning import (constrain, is_dtensor,
                                                   local_rows, merge_dims, pad,
                                                   project, run_local,
                                                   unflatten)
+from repro_torch.kernels import decode_attention
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -321,7 +322,10 @@ def gqa_decode(
     cache: Dict[str, torch.Tensor],
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One decode step against a full or ring KV cache (updated in place)."""
+    """One decode step against a full or ring KV cache (updated in place).
+    Where the input allows it (``decode_attention.routes``: a full bf16
+    cache on the card, among others) the attention runs the hand-written
+    kernel ``kernels/decode_attention.py``, else ``attend_full``."""
     positions = pos[:, None]
     q, k, v = _project_qkv(p, x, cfg, positions)
     ring = _is_ring(cfg)
@@ -341,6 +345,14 @@ def gqa_decode(
         _write_rows(cache["v"], bidx, slot, v)
         ck, cv = cache["k"], cache["v"]
 
+    scale = cfg.head_dim ** -0.5
+    if decode_attention.routes(q, ck, cv, ring=ring,
+                               quantized="k_scale" in cache,
+                               softcap=cfg.attn_logit_softcap):
+        # the hand-written kernel reads the valid bf16 cache rows once
+        o = decode_attention.decode_attention(q, ck, cv, pos, scale)
+        return _out_proj(p, o, x, cfg), cache
+
     j = torch.arange(S, device=x.device)[None, :]
     if ring:
         # reconstruct absolute positions of ring slots
@@ -351,7 +363,7 @@ def gqa_decode(
 
     o = _local_attend(
         attend_full, q, ck, cv, positions, kv_pos,
-        window=cfg.window if ring else None, scale=cfg.head_dim ** -0.5,
+        window=cfg.window if ring else None, scale=scale,
         softcap=cfg.attn_logit_softcap,
     )
     return _out_proj(p, o, x, cfg), cache
