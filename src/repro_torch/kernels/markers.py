@@ -17,7 +17,8 @@ import torch
 
 # the launcher's phase index is the position here (csrc: PHASE_MARKERS)
 PHASES = ("prefill_begin", "prefill_end", "decode_begin", "decode_end",
-          "update_begin", "update_end")
+          "update_begin", "update_end", "moe_begin", "moe_end", "mla_begin",
+          "mla_end")
 _INDEX = {p: i for i, p in enumerate(PHASES)}
 
 

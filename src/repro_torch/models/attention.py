@@ -27,7 +27,7 @@ from repro_torch.distributed.partitioning import (constrain, is_dtensor,
                                                   local_rows, merge_dims, pad,
                                                   project, run_local,
                                                   unflatten)
-from repro_torch.kernels import decode_attention
+from repro_torch.kernels import decode_attention, markers
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -54,14 +54,23 @@ def gqa_init(init: Init, cfg: ModelConfig):
 
 
 def mla_init(init: Init, cfg: ModelConfig):
+    """MLA's params; without a q LoRA (``q_lora_rank`` None, DeepSeek-V2-
+    Lite) the queries come from one projection ``wq``."""
     E, H = cfg.d_model, cfg.num_heads
     r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if r_q is None:
+        q = {"wq": layers.dense_init(init, (E, H, dn + dr),
+                                     ("embed", "heads", "head_dim"))}
+    else:
+        q = {
+            "q_a": layers.dense_init(init, (E, r_q), ("embed", "q_rank")),
+            "q_norm": init.full((r_q,), 1.0, axes=("q_rank",)),
+            "q_b": layers.dense_init(init, (r_q, H, dn + dr),
+                                     ("q_rank", "heads", "head_dim")),
+        }
     return {
-        "q_a": layers.dense_init(init, (E, r_q), ("embed", "q_rank")),
-        "q_norm": init.full((r_q,), 1.0, axes=("q_rank",)),
-        "q_b": layers.dense_init(init, (r_q, H, dn + dr),
-                                 ("q_rank", "heads", "head_dim")),
+        **q,
         "kv_a": layers.dense_init(init, (E, r_kv + dr), ("embed", "kv_rank")),
         "kv_norm": init.full((r_kv,), 1.0, axes=("kv_rank",)),
         "kv_b": layers.dense_init(init, (r_kv, H, dn + dv),
@@ -370,18 +379,47 @@ def gqa_decode(
 
 
 # ================================================================ MLA fwd
+def _mla_rope(t, positions, cfg: ModelConfig):
+    """Rotary embedding of MLA's rope dims, YaRN-scaled where the config
+    says (``yarn_factor``)."""
+    if not cfg.yarn_factor:
+        return layers.apply_rope(t, positions, cfg.rope_theta)
+    inv = layers.yarn_inv_freq(
+        t.shape[-1], cfg.rope_theta, cfg.yarn_factor,
+        cfg.yarn_original_max_pos, cfg.yarn_beta_fast, cfg.yarn_beta_slow,
+        device=t.device)
+    cos_scale = (layers.yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale)
+                 / layers.yarn_mscale(cfg.yarn_factor,
+                                      cfg.yarn_mscale_all_dim))
+    return layers.apply_rope(t, positions, cfg.rope_theta, inv_freq=inv,
+                             cos_scale=cos_scale)
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """MLA's softmax scale: ``(qk_nope + qk_rope) ** -0.5``, times YaRN's
+    temperature squared where ``yarn_mscale_all_dim`` is set."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+        m = layers.yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+        scale = scale * m * m
+    return scale
+
+
 def _mla_qkv(p, x, cfg: ModelConfig, positions):
     dn = cfg.qk_nope_head_dim
-    cq = _rms(x @ p["q_a"].to(x.dtype), p["q_norm"])
-    q = project(cq, p["q_b"].to(x.dtype),
-                ("batch", "act_seq", "heads", "head_dim"))
-    q = constrain(q, ("batch", "act_seq", "heads", "head_dim"))
+    heads = ("batch", "act_seq", "heads", "head_dim")
+    if "wq" in p:
+        q = project(x, p["wq"].to(x.dtype), heads)
+    else:
+        cq = _rms(x @ p["q_a"].to(x.dtype), p["q_norm"])
+        q = project(cq, p["q_b"].to(x.dtype), heads)
+    q = constrain(q, heads)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = _mla_rope(q_rope, positions, cfg)
     ckv_full = x @ p["kv_a"].to(x.dtype)
     c_kv = _rms(ckv_full[..., : cfg.kv_lora_rank], p["kv_norm"])
     k_rope = ckv_full[..., cfg.kv_lora_rank:][:, :, None, :]  # (B,L,1,dr)
-    k_rope = layers.apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+    k_rope = _mla_rope(k_rope, positions, cfg)[:, :, 0]
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -398,7 +436,7 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos, cfg,
     """Shared MLA attention core; absorb=True uses the latent-space trick
     (score/context computed against c_kv directly — decode optimization)."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    scale = (dn + dr) ** -0.5
+    scale = mla_scale(cfg)
     if absorb:
         kv_b_k = p["kv_b"][..., :dn]  # (r, H, dn)
         kv_b_v = p["kv_b"][..., dn:]  # (r, H, dv)
@@ -448,18 +486,27 @@ def mla_forward(p, x, positions, cfg: ModelConfig, absorb: bool = False):
 
 def mla_prefill(p, x, positions, cfg: ModelConfig, cache_len: int,
                 absorb: bool = False):
+    """Like mla_forward but also returns the latent cache.  On the card the
+    core, attention through the cache's rows to ``wo``, lies between the
+    ``mla_begin`` and ``mla_end`` phase markers."""
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    markers.mark("mla_begin", x.device)
     out = _mla_attend(
         p, q_nope, q_rope, c_kv, k_rope, positions, positions, cfg, absorb
     )
-    return out, {"c_kv": _pad_seq(c_kv, cache_len),
-                 "k_rope": _pad_seq(k_rope, cache_len)}
+    cache = {"c_kv": _pad_seq(c_kv, cache_len),
+             "k_rope": _pad_seq(k_rope, cache_len)}
+    markers.mark("mla_end", x.device)
+    return out, cache
 
 
 def mla_decode(p, x, pos, cache, cfg: ModelConfig, absorb: bool = True):
-    """One decode step against the latent cache (updated in place)."""
+    """One decode step against the latent cache (updated in place).  On the
+    card the core, from the cache write to ``wo``, lies between the
+    ``mla_begin`` and ``mla_end`` phase markers."""
     positions = pos[:, None]
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, positions)
+    markers.mark("mla_begin", x.device)
     bidx = torch.arange(x.shape[0], device=x.device)[:, None]
     _write_rows(cache["c_kv"], bidx, positions, c_kv_new)
     _write_rows(cache["k_rope"], bidx, positions, k_rope_new)
@@ -470,4 +517,5 @@ def mla_decode(p, x, pos, cache, cfg: ModelConfig, absorb: bool = True):
     out = _mla_attend(
         p, q_nope, q_rope, c_kv, k_rope, positions, kv_pos, cfg, absorb
     )
+    markers.mark("mla_end", x.device)
     return out, cache

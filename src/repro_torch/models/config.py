@@ -2,7 +2,9 @@
 
 One dataclass covers dense / MoE / SSM / hybrid / VLM / audio backbones;
 per-arch files in repro_torch/configs instantiate it with published
-numbers.  A copy of the reference's dataclass, field for field.
+numbers.  A copy of the reference's dataclass, field for field;
+``DeepSeekV2Config`` adds the fields of DeepSeek-V2's layers, which the
+reference has not.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ class ModelConfig:
 
     # MLA (minicpm3 / deepseek-style) — set mla=True to replace GQA
     mla: bool = False
-    q_lora_rank: int = 768
+    q_lora_rank: Optional[int] = 768  # None: a direct q projection (wq)
     kv_lora_rank: int = 256
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
@@ -57,7 +59,9 @@ class ModelConfig:
     num_experts: int = 0  # 0 = dense MLP
     num_experts_per_tok: int = 2
     capacity_factor: float = 1.25
-    router_softmax_order: str = "topk_then_softmax"  # mixtral convention
+    # topk_then_softmax (mixtral) | softmax_then_topk (granite: the top-k
+    # renormalised) | softmax_then_topk_raw (deepseek: not renormalised)
+    router_softmax_order: str = "topk_then_softmax"
     # tokens per dispatch group (Gshard): capacity C = Gs*k/E*cf, and the
     # dispatch einsum costs E*C*d per token — small groups keep it a few %
     # of expert FLOPs while preserving fixed shapes.
@@ -98,6 +102,24 @@ class ModelConfig:
     # int8 KV cache with per-(token, head) max-abs scales (the paper's
     # Q-format idea applied to attention state; serving memory-term win)
     kv_cache_quant: bool = False
+
+    # DeepSeek-V2's settings (``DeepSeekV2Config``'s fields, which the
+    # reference's dataclass has not): every other config reads these
+    # class defaults, none of them a field, so ``asdict`` of a zoo config
+    # stays the reference's, field for field
+    moe_dropless = False
+    router_experts = 0
+    expert_offset = 0
+    num_shared_experts = 0
+    routed_scaling = 1.0
+    first_k_dense = 0
+    dense_d_ff = None
+    yarn_factor = 0.0
+    yarn_original_max_pos = 4096
+    yarn_beta_fast = 32.0
+    yarn_beta_slow = 1.0
+    yarn_mscale = 1.0
+    yarn_mscale_all_dim = 0.0
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -165,3 +187,34 @@ class ModelConfig:
         )
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(ModelConfig):
+    """A ``ModelConfig`` with DeepSeek-V2's layers
+    (hf:deepseek-ai/DeepSeek-V2-Lite): latent attention, YaRN, leading
+    dense blocks, and expert blocks that hold a share of the routed
+    experts beside shared experts.
+
+    The expert layer (``moe.dropless_forward``) has no capacity, so no token
+    is dropped and a token's output never depends on its neighbours; it
+    holds the ``num_experts`` experts from ``expert_offset`` on of the
+    ``router_experts`` the router scores (one card's share under expert
+    parallelism)."""
+
+    moe_dropless = True  # not a field: DeepSeek-V2's expert layer
+    router_experts: int = 0  # 0: num_experts
+    expert_offset: int = 0
+    num_shared_experts: int = 0  # one MLP of width n * d_ff
+    routed_scaling: float = 1.0
+    # leading dense blocks before the MoE blocks, with their own MLP width
+    first_k_dense: int = 0
+    dense_d_ff: Optional[int] = None  # None: d_ff
+
+    # YaRN rope scaling of the MLA rotary dims (factor 0: none)
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0

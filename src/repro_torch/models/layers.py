@@ -134,21 +134,64 @@ def rope_freqs(head_dim: int, theta: float, rope_pct: float = 1.0,
     return inv, rot_dim
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: ``0.1 * mscale * ln(factor) + 1``, and
+    1 where ``factor`` <= 1."""
+    if factor <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_inv_freq(dim: int, theta: float, factor: float,
+                  original_max_pos: int, beta_fast: float, beta_slow: float,
+                  device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies of ``dim`` rotary dims (DeepSeek-V2's
+    form): each pair's frequency ramps linearly, between the pairs that
+    turn ``beta_fast`` and ``beta_slow`` times over ``original_max_pos``
+    positions, from theta's own (the fast pairs, kept) to theta's over
+    ``factor`` (the slow pairs, interpolated).  Float32, on ``device``."""
+    def turns_dim(turns):
+        return (dim * math.log(original_max_pos / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(turns_dim(beta_fast)), 0)
+    high = min(math.ceil(turns_dim(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / torch.pow(theta, exps)
+    inter = 1.0 / (factor * torch.pow(theta, exps))
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
 def apply_rope(
     x: torch.Tensor,  # (..., L, H, D)
     positions: torch.Tensor,  # (..., L) int
     theta: float,
     rope_pct: float = 1.0,
+    inv_freq: Optional[torch.Tensor] = None,
+    cos_scale: float = 1.0,
 ) -> torch.Tensor:
     """Rotary embedding on the first ``rope_pct`` of each head's dims
-    (halves rotated as a pair); the rest pass through."""
+    (halves rotated as a pair); the rest pass through.  ``inv_freq`` (the
+    first ``2 * len(inv_freq)`` dims rotated) replaces theta's, and
+    ``cos_scale`` scales cos and sin (YaRN)."""
     D = x.shape[-1]
-    inv, rot_dim = rope_freqs(D, theta, rope_pct, device=x.device)
+    if inv_freq is None:
+        inv, rot_dim = rope_freqs(D, theta, rope_pct, device=x.device)
+    else:
+        inv, rot_dim = inv_freq, 2 * inv_freq.shape[0]
     if rot_dim == 0:
         return x
     ang = positions[..., None].float() * inv  # (..., L, rot/2)
     cos = torch.cos(ang)[..., None, :]  # (..., L, 1, rot/2)
     sin = torch.sin(ang)[..., None, :]
+    if cos_scale != 1.0:
+        cos, sin = cos * cos_scale, sin * cos_scale
     xr, xp = x[..., :rot_dim], x[..., rot_dim:]
     x1, x2 = xr[..., : rot_dim // 2], xr[..., rot_dim // 2:]
     y1 = x1 * cos - x2 * sin

@@ -6,6 +6,8 @@ reference's layout), plus an optional non-divisible tail group.
 
   dense/vlm/audio : pattern [(gqa|mla, mlp)]            x num_layers
   moe             : pattern [(gqa, moe)]                x num_layers
+  first_k_dense   : [(mla, dense_mlp)] x k, then [(mla, moe)] x the rest
+                    (DeepSeek-V2: groups "dense" and "main")
   ssm             : pattern [(ssm, None)]               x num_layers
   hybrid(griffin) : pattern [(rg,mlp),(rg,mlp),(gqa,mlp)] x repeats + tail
 
@@ -68,6 +70,10 @@ def layer_plan(cfg: ModelConfig) -> List[Tuple[str, List[Tuple[str, Optional[str
         mixer = "mla" if cfg.mla else "gqa"
         ffn = "moe" if cfg.num_experts else "mlp"
         pattern = [(mixer, ffn)]
+        if cfg.first_k_dense:
+            # DeepSeek-V2: leading dense blocks, then the expert blocks
+            return [("dense", [(mixer, "dense_mlp")], cfg.first_k_dense),
+                    ("main", pattern, cfg.num_layers - cfg.first_k_dense)]
     n = len(pattern)
     repeats, rem = divmod(cfg.num_layers, n)
     plan = []
@@ -100,7 +106,12 @@ def block_init(init: Init, cfg: ModelConfig, spec: Tuple[str, Optional[str]]):
     if ffn_kind is not None:
         p["norm2"] = layers.norm_init(init, cfg.d_model, cfg.norm_kind)
         if ffn_kind == "moe":
-            p["ffn"] = moe.moe_init(init, cfg)
+            p["ffn"] = (moe.dropless_init(init, cfg) if cfg.moe_dropless
+                        else moe.moe_init(init, cfg))
+        elif ffn_kind == "dense_mlp":
+            p["ffn"] = layers.mlp_init(init, cfg.d_model,
+                                       cfg.dense_d_ff or cfg.d_ff,
+                                       cfg.mlp_kind)
         else:
             p["ffn"] = layers.mlp_init(init, cfg.d_model, cfg.d_ff,
                                        cfg.mlp_kind)
@@ -109,6 +120,8 @@ def block_init(init: Init, cfg: ModelConfig, spec: Tuple[str, Optional[str]]):
 
 def _apply_ffn(p, h, cfg: ModelConfig, ffn_kind):
     if ffn_kind == "moe":
+        if cfg.moe_dropless:
+            return moe.dropless_forward(p["ffn"], h, cfg)
         return moe.moe_forward(p["ffn"], h, cfg)
     return layers.apply_mlp(p["ffn"], h, cfg.mlp_kind), {}
 
