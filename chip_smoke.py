@@ -160,6 +160,12 @@ Phases, in order; any failure exits non-zero:
    reserved memory; the ms of each capture; ``decode_attention``'s
    counters over the bfloat16 serves (held: each decode capture records
    one launch a layer, and no decode call falls back to ``attend_full``).
+   Beside it the absorbed-MLA decode kernel (``mla_decode``) alone at the
+   DeepSeek serving cell's shape (B 128, a cache of 1,536 rows, 16 heads
+   of rank 512 and rope 64, 1,280 valid rows; four caches in turn, so each
+   call reads cold rows): its device time a launch beside its one-read
+   bytes bound, the bound of reading c_kv twice and ``_mla_latent`` (the
+   plain version), held to 99 % of outputs within one bfloat16 ulp of it.
    The gate: the same params
    and requests served in float32 compute with TF32 off (graphed, and
    equal to eager), and the teacher-forced forward over each batch's
@@ -2925,9 +2931,84 @@ def lm_decode_attention(torch, dev, card):
             "max_abs_err": float(err.max())}
 
 
+# the DeepSeek serving cell's decode step (portbench lm-batch-b128-p1024-n512
+# on deepseek-v2-lite): B 128, a cache of 1,536 rows, 16 heads of rank 512
+# and rope 64; 1,280 valid rows a row, the mean over a batch's 511 steps
+MLA_SHAPE = dict(B=128, S=1536, H=16)
+MLA_VALID = 1280
+MLA_COPIES = 4  # caches the timed calls take in turn: 905 MB, past the L2
+
+
+def lm_mla_decode(torch, dev, card):
+    """The absorbed-MLA decode kernel alone at the DeepSeek serving cell's
+    shape: its device time a launch (``torch.profiler``, 50 calls, each on
+    the next of MLA_COPIES caches, so each reads its rows cold as a decode
+    step does) beside its bytes bound (the valid c_kv and k_rope rows once),
+    the bound of a design that reads c_kv twice, and the plain version
+    (``_mla_latent`` as ``mla_decode`` called it).  Gated: within the card
+    test's tolerance of the plain version."""
+    from repro_torch.kernels import mla_decode as mk
+    from repro_torch.models.attention import _mla_latent
+
+    B, S, H = (MLA_SHAPE[k] for k in ("B", "S", "H"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, q_rope = bf16(B, 1, H, 512), bf16(B, 1, H, 64)
+    caches = [(bf16(B, S, 512), bf16(B, S, 64)) for _ in range(MLA_COPIES)]
+    pos = torch.full((B,), MLA_VALID - 1, dtype=torch.long, device=dev)
+    scale = 192 ** -0.5
+    j = torch.arange(S, device=dev)[None, :]
+    kv_pos = torch.where(j <= pos[:, None], j, -1)
+    turn = [0]
+
+    def kernel():
+        c_kv, k_rope = caches[turn[0] % MLA_COPIES]
+        turn[0] += 1
+        return mk.mla_decode(q, q_rope, c_kv, k_rope, pos, scale)
+
+    def plain():
+        c_kv, k_rope = caches[0]
+        return _mla_latent(q, q_rope, c_kv, k_rope, pos[:, None], kv_pos,
+                           scale)
+
+    got, want = kernel(), plain()
+    err = (got.float() - want.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.abs().float().clamp_min(2.0 ** -126))) - 7)
+    within = float((err <= ulp).float().mean())
+    if within < 0.99:
+        fail(f"mla_decode: {within:.4%} of outputs within 1 bf16 ulp of "
+             f"_mla_latent (needs 99 %)")
+    ms = device_ms(kernel, reps=50, only="mla_decode_kernel")
+    call_ms = device_ms(kernel, reps=50)
+    plain_ms = device_ms(plain, reps=10)
+    ev_ms = cuda_ms(kernel, reps=50)
+    valid = [MLA_VALID - 1] * B
+    bound_ms = mk.bytes_bound(valid, S) / HBM_BYTES_PER_S * 1e3
+    two_ms = mk.bytes_two_reads(valid, S) / HBM_BYTES_PER_S * 1e3
+    share = None if ms is None else bound_ms / ms
+    print(f"mla_decode: B {B}, S {S}, H {H}, rank 512, rope 64, {MLA_VALID} "
+          f"valid rows a row, {MLA_COPIES} caches in turn | kernel {ms} ms "
+          f"device a launch (call {call_ms} ms; {ev_ms:.4f} ms CUDA events) "
+          f"| one-read bound {bound_ms:.4f} ms "
+          f"({mk.bytes_bound(valid, S) / 1e6:.1f} MB at 3.35 TB/s) = "
+          f"{share if share is None else f'{share:.1%}'} of it; two-read "
+          f"bound {two_ms:.4f} ms | plain _mla_latent {plain_ms} ms | "
+          f"{within:.4%} of outputs within 1 bf16 ulp of it, max |diff| "
+          f"{float(err.max()):.3e} | on {card}")
+    del caches
+    return {"ms": ms, "call_ms": call_ms, "events_ms": ev_ms,
+            "bound_ms": bound_ms, "bound_two_reads_ms": two_ms,
+            "bound_by": "bytes", "plain_ms": plain_ms, "library_ms": None,
+            "within_1ulp": within, "max_abs_err": float(err.max())}
+
+
 def phase_lm(torch, dev, card):
     """Phase 11: the LM zoo's serving path (``ServeEngine`` on ``Model``);
-    returns the decode-attention kernel's row."""
+    returns the decode-attention and MLA decode kernels' rows."""
     import dataclasses
     import io
     from contextlib import redirect_stdout
@@ -2940,6 +3021,8 @@ def phase_lm(torch, dev, card):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     da_row = lm_decode_attention(torch, dev, card)
+    torch.cuda.empty_cache()
+    mla_row = lm_mla_decode(torch, dev, card)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     da_row["launches"] = lm_full_width(torch, dev, card)
@@ -3048,7 +3131,7 @@ def phase_lm(torch, dev, card):
     print(f"lm example (graphed): {lines[0].strip()}")
     print(f"lm: phase 11 took {time.perf_counter() - t_phase:.1f} s | on "
           f"{card}")
-    return da_row
+    return da_row, mla_row
 
 
 # --------------------------------------------------------------------------
@@ -3766,8 +3849,9 @@ def main() -> int:
     phase_faults(torch, dev, params_np, card)
     # 10. the event input path: DVS serving, capacity, AER-direct, BCNN
     events = phase_events(torch, dev, params_np, card, main_run)
-    # 11. the LM zoo's serving path (decode attention its one kernel)
-    da_row = phase_lm(torch, dev, card)
+    # 11. the LM zoo's serving path (decode attention and MLA decode its
+    # kernels)
+    da_row, mla_row = phase_lm(torch, dev, card)
     # 12. the LM zoo's training path (no kernel of the table on it either)
     lm_train = phase_lm_train(torch, dev, card)
     # 14. slot sharding over a mesh of the card; the GPipe pipeline
@@ -3821,7 +3905,10 @@ def main() -> int:
     }] + ops_rows(hw, ops_k) + [dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces=None, **da_row)]
+        replaces=None, **da_row), dict(
+        name="mla_decode", route="cuda",
+        source="src/repro_torch/kernels/csrc/mla_decode.cu",
+        replaces=None, **mla_row)]
     for row in rows:
         p = budgets[row["name"]]
         row["budget"] = {k: p[k] for k in (

@@ -349,6 +349,38 @@ def _plan_decode_attention() -> KernelPlan:
                       p.threads, 1, p.smem, covers, errors)
 
 
+# the DeepSeek serving cell's decode step: B 128, a latent cache of 1,536
+# rows, 16 heads of rank 512 and rope 64 (deepseek-v2-lite)
+_MLA = dict(B=128, S=1536, H=16)
+
+
+def _plan_mla_decode() -> KernelPlan:
+    from repro_torch.kernels import mla_decode as mod
+
+    B, S, H = (_MLA[k] for k in ("B", "S", "H"))
+    p = mod.plan(B, S, H)
+    d = cu_defines("mla_decode")
+    errors: list[str] = []
+    covers: dict = {}
+    _cover(errors, covers, "cache_rows", p.grid[0] * p.rows, S)
+    _cover(errors, covers, "heads", p.grid[1] * mod.HEADS, H)
+    _cover(errors, covers, "rows", p.grid[2], B)
+    for name, want in (("MLA_THREADS", mod.THREADS),
+                       ("MLA_CLUSTER", mod.CLUSTER), ("MLA_HEADS", mod.HEADS),
+                       ("MLA_RANK", mod.RANK), ("MLA_ROPE", mod.ROPE),
+                       ("MLA_GROUP", mod.GROUP),
+                       ("MLA_GROUPS_MAX", mod.GROUPS_MAX)):
+        if d.get(name) != want:
+            errors.append(f"{want} != the source's {name} {d.get(name)}")
+    if p.smem > d.get("MLA_SMEM_MAX", DEFAULT_SMEM_BUDGET):
+        errors.append(f"shared memory {p.smem} over MLA_SMEM_MAX "
+                      f"{d.get('MLA_SMEM_MAX')}")
+    # the instantiation the cell's shape launches: 3 groups of 64 rows
+    return KernelPlan("mla_decode", "mla_decode", "mla_decode_kernelILi3EE",
+                      dict(_MLA), p.grid, p.threads, p.cluster, p.smem,
+                      covers, errors)
+
+
 K0, N0, N1 = _WIDTHS
 KERNEL_PLANNERS: dict[str, Callable[[], KernelPlan]] = {
     "snn_chunk": lambda: _plan_snn_chunk(_SLOTS, _TC),
@@ -367,6 +399,7 @@ KERNEL_PLANNERS: dict[str, Callable[[], KernelPlan]] = {
     "q115_matmul[128x512x128]": lambda: _plan_q115(
         "q115_matmul[128x512x128]", 128, 512, 128, True),
     "decode_attention": _plan_decode_attention,
+    "mla_decode": _plan_mla_decode,
 }
 
 

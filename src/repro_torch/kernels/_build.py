@@ -45,6 +45,10 @@ SIGNATURES: Dict[str, Tuple[str, list]] = {
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     ),
     "lif_fused": ("lif_fused_launch", [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
+    "mla_decode": (
+        "mla_decode_launch",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    ),
     "phase_marker": ("phase_marker_launch", [_I, _P]),
     "q115_matmul": ("q115_matmul_launch", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "snn_chunk": (

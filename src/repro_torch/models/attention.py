@@ -28,6 +28,7 @@ from repro_torch.distributed.partitioning import (constrain, is_dtensor,
                                                   project, run_local,
                                                   unflatten)
 from repro_torch.kernels import decode_attention, markers
+from repro_torch.kernels import mla_decode as mla_kernel
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Init
@@ -432,9 +433,11 @@ def _mla_expand_kv(p, c_kv, cfg: ModelConfig):
 
 
 def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos, cfg,
-                absorb):
+                absorb, pos=None):
     """Shared MLA attention core; absorb=True uses the latent-space trick
-    (score/context computed against c_kv directly — decode optimization)."""
+    (score/context computed against c_kv directly — decode optimization).
+    ``pos`` (B,): a decode step over the full cache that
+    ``mla_kernel.routes`` sent to the kernel (``_mla_absorbed``)."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     scale = mla_scale(cfg)
     if absorb:
@@ -442,7 +445,7 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos, cfg,
         kv_b_v = p["kv_b"][..., dn:]  # (r, H, dv)
         heads = ("batch", None, "heads", None)
         o = run_local(
-            functools.partial(_mla_absorbed, scale=scale),
+            functools.partial(_mla_absorbed, scale=scale, pos=pos),
             (q_nope, q_rope, c_kv, k_rope, kv_b_k, kv_b_v, q_pos, kv_pos),
             (heads, heads, ("batch", None, None), ("batch", None, None),
              (None, "heads", None), (None, "heads", None), ("batch", None),
@@ -463,18 +466,31 @@ def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos, cfg,
 
 
 def _mla_absorbed(q_nope, q_rope, c_kv, k_rope, kv_b_k, kv_b_v, q_pos,
-                  kv_pos, scale: float):
+                  kv_pos, scale: float, pos=None):
     """MLA attention against the latent cache itself (the absorbed
-    decode form): score and context computed against c_kv directly."""
+    decode form): score and context computed against c_kv directly, by
+    the hand-written kernel ``kernels/mla_decode.py`` where ``pos`` (B,)
+    is given (rows ``j <= pos[b]`` valid), else by ``_mla_latent``."""
     q_eff = torch.einsum("blhd,rhd->blhr", q_nope, kv_b_k.to(q_nope.dtype))
+    if pos is None:
+        ctx = _mla_latent(q_eff, q_rope, c_kv, k_rope, q_pos, kv_pos, scale)
+    else:
+        # reads the valid bf16 cache rows in place, once
+        ctx = mla_kernel.mla_decode(q_eff, q_rope, c_kv, k_rope, pos, scale)
+    return torch.einsum("blhr,rhd->blhd", ctx, kv_b_v.to(ctx.dtype))
+
+
+def _mla_latent(q_eff, q_rope, c_kv, k_rope, q_pos, kv_pos, scale: float):
+    """The latent context (B, Lq, H, r) of the absorbed query ``q_eff``
+    against the cache: float32 scores, softmax, bf16 weights; the plain
+    version of ``kernels/mla_decode.py``."""
     s = torch.einsum("blhr,bsr->bhls", q_eff.float(), c_kv.float())
     s = s + torch.einsum("blhd,bsd->bhls", q_rope.float(), k_rope.float())
     s = s * scale
     mask = _mask(q_pos, kv_pos, None)[:, None]
     s = torch.where(mask, s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(c_kv.dtype)
-    ctx = torch.einsum("bhls,bsr->blhr", w, c_kv)
-    return torch.einsum("blhr,rhd->blhd", ctx, kv_b_v.to(ctx.dtype))
+    return torch.einsum("bhls,bsr->blhr", w, c_kv)
 
 
 def mla_forward(p, x, positions, cfg: ModelConfig, absorb: bool = False):
@@ -503,7 +519,11 @@ def mla_prefill(p, x, positions, cfg: ModelConfig, cache_len: int,
 def mla_decode(p, x, pos, cache, cfg: ModelConfig, absorb: bool = True):
     """One decode step against the latent cache (updated in place).  On the
     card the core, from the cache write to ``wo``, lies between the
-    ``mla_begin`` and ``mla_end`` phase markers."""
+    ``mla_begin`` and ``mla_end`` phase markers.  Where the input allows it
+    (``mla_kernel.routes``: the absorbed form over a bf16 cache on the
+    card, rank 512 and rope 64, among others) the latent context comes from
+    the hand-written kernel ``kernels/mla_decode.py``, else from
+    ``_mla_latent``."""
     positions = pos[:, None]
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, positions)
     markers.mark("mla_begin", x.device)
@@ -514,8 +534,10 @@ def mla_decode(p, x, pos, cache, cfg: ModelConfig, absorb: bool = True):
     S = c_kv.shape[1]
     j = torch.arange(S, device=x.device)[None, :]
     kv_pos = torch.where(j <= pos[:, None], j, -1)
+    routed = absorb and mla_kernel.routes(q_nope, q_rope, c_kv, k_rope)
     out = _mla_attend(
-        p, q_nope, q_rope, c_kv, k_rope, positions, kv_pos, cfg, absorb
+        p, q_nope, q_rope, c_kv, k_rope, positions, kv_pos, cfg, absorb,
+        pos=pos if routed else None,
     )
     markers.mark("mla_end", x.device)
     return out, cache

@@ -404,7 +404,8 @@ def test_kernel_budgets_all_kernels_fit(tmp_path):
     assert {p.kernel for p in plans} == set(KERNEL_PLANNERS)
     assert {n.split("[")[0] for n in KERNEL_PLANNERS} == {
         "snn_chunk", "aer_spike_matmul_batched", "aer_spike_matmul",
-        "lif_fused", "spike_matmul", "q115_matmul", "decode_attention"}
+        "lif_fused", "spike_matmul", "q115_matmul", "decode_attention",
+        "mla_decode"}
     for p in plans:
         assert p.errors == [], p.kernel
         assert 0 <= p.smem_bytes <= DEFAULT_SMEM_BUDGET
@@ -507,6 +508,8 @@ def test_ptxas_reports_fill_registers_and_judge_spills(tmp_path):
         "phase_marker": entry("phase_marker_update_end", 4, 0),
         "decode_attention": entry("decode_attention_kernelILi8ELi1EE", 40, 0,
                                   16),
+        "mla_decode": "".join(entry(f"mla_decode_kernelILi{g}EE", regs, 0)
+                              for g, regs in ((3, 198), (2, 194), (1, 183))),
     }
     _reports(tmp_path, clean.get)
     plans, findings = check_kernel_budgets(build_dir=tmp_path)
@@ -517,6 +520,9 @@ def test_ptxas_reports_fill_registers_and_judge_spills(tmp_path):
     assert by["lif_fused"].registers == 90 and by["lif_fused"].entries == 1
     assert by["q115_matmul"].registers == 110
     assert by["decode_attention"].registers == 40
+    # the cell's instantiation alone: 198 registers x 256 threads, no spill
+    assert by["mla_decode"].registers == 198 and by["mla_decode"].entries == 1
+    assert by["mla_decode"].spill_bytes == by["mla_decode"].static_smem_bytes == 0
 
     spilling = dict(clean, spike_matmul=entry("spike_matmul_kernel", 124, 16),
                     snn_chunk=entry("snn_chunk_kernel", 255, 8))
